@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Chip smoke test of multiposenet_tpu_torch, the PyTorch/CUDA port: the
+quickest proof that the port builds, is right and serves on an NVIDIA GPU.
+
+    python3 chip_smoke.py            # needs one CUDA GPU, nvcc and the repo
+
+Phases (any failure exits non-zero, and no result line is printed):
+  1. device   the card's name and power limit (nvidia-smi), then every CUDA
+              source of the port built with nvcc, one process per source,
+              started together;
+  2. kernels  each hand-written kernel against its plain PyTorch twin on the
+              card at the serving path's shapes (NMS suppression: 64 images
+              x 100 candidates, fuzzed with duplicates, IoU exactly at the
+              threshold, degenerate boxes and invalid slots), bit for bit,
+              then timed with CUDA events beside the twin;
+  3. check    the CUDA pipeline against the same pipeline on the CPU (plain
+              twins) on a small float32 input: equal grouped outputs;
+  4. serving  BatchPredictor at full width (ResNet-101 FPN, 480 px, bf16,
+              channels-last, max_people 20) answers 40 images of mixed
+              sizes at batch 16; every kernel's launch count is zeroed just
+              before and must have grown just after;
+  5. e2e      the pipeline at bench.py's configuration (batch 64, 480 px,
+              bf16, max_people 20) timed with CUDA events.
+
+The weights are random, drawn from a seed; the detection output convs are
+rescaled so that scores and boxes vary between anchors, and the thresholds
+are lowered so that boxes and peaks exist.  The last two lines of standard
+output are the kernels' JSON line and the result line.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+INP = 480
+SERVE_BATCH = 16
+BENCH_BATCH = 64
+MAX_PEOPLE = 20
+K = 100                      # max_detections at the serving configuration
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
+F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels(sources) -> dict:
+    from multiposenet_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        for src, path in zip(sources, ex.map(_build.build, sources)):
+            log(f"build: {src} -> {path.name}")
+    total = time.perf_counter() - t0
+    log(f"build: {len(sources)} source(s) in {total:.2f} s")
+    return dict(_build.build_seconds)
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, per_graph: int = 20, replays: int = 50) -> float:
+    """Device time per call of ``fn``: ``per_graph`` calls captured in one
+    CUDA graph and replayed, so no host work sits between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
+
+
+# ---------------------------------------------------------------- phase 2
+
+def fuzz_nms_inputs(b: int, k: int, gen: torch.Generator):
+    """(b, k, 4) score-sorted-like boxes in a 480 px frame + (b, k) valid,
+    with duplicates, IoU exactly 0.5 pairs, degenerate boxes and invalid
+    slots (one image all invalid, one all valid)."""
+    u = lambda *s: torch.rand(*s, generator=gen)  # noqa: E731
+    ctr = u(b, k, 2) * 400 + 40
+    wh = u(b, k, 2) * 150 + 8
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    boxes[:, 1::5] = boxes[:, 0::5][:, : boxes[:, 1::5].shape[1]]     # duplicates
+    xy = torch.floor(u(b, k // 10, 2) * 300)
+    boxes[:, 2::10, :2] = xy                                         # IoU == 0.5
+    boxes[:, 2::10, 2:] = xy + 9
+    boxes[:, 3::10, :2] = xy
+    boxes[:, 3::10, 2] = xy[..., 0] + 9
+    boxes[:, 3::10, 3] = xy[..., 1] + 4
+    boxes[:, 4::7, 2] = boxes[:, 4::7, 0] - u(b, boxes[:, 4::7].shape[1]) * 5  # x2 < x1
+    boxes[:, 6::9, 2:] = boxes[:, 6::9, :2] - 1.0                    # zero area
+    valid = u(b, k) < 0.85
+    valid[0] = False
+    valid[1] = True
+    return boxes.float().contiguous(), valid.contiguous()
+
+
+def nms_candidates(pipe, images: torch.Tensor):
+    """The (B, K, 4) boxes and (B, K) valid mask that the serving path hands
+    the suppression kernel for ``images``."""
+    from multiposenet_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+    from multiposenet_tpu_torch.ops.nms import topk_candidates
+
+    det = pipe.cfg.detection
+    _, cls, reg = pipe.forward(images)
+    boxes = clip_boxes(decode_boxes(pipe.base.anchors[None], reg.float()), INP, INP)
+    _, _, top_boxes, valid = topk_candidates(boxes, cls.amax(dim=2),
+                                             det.max_detections, det.score_thresh)
+    return top_boxes.float().contiguous(), valid.contiguous()
+
+
+def check_nms_kernel(boxes, valid, thresh: float, label: str) -> int:
+    from multiposenet_tpu_torch.ops.cuda_nms import nms_suppress_cuda
+    from multiposenet_tpu_torch.ops.nms import nms_suppress_plain
+
+    got = nms_suppress_cuda(boxes, valid, thresh)
+    want = nms_suppress_plain(boxes, valid, thresh)
+    torch.cuda.synchronize()
+    mismatch = int((got != want).sum())
+    log(f"kernel nms_suppress [{label}]: B={boxes.shape[0]} K={boxes.shape[1]} "
+        f"kept={int(got.sum())} suppressed={int((valid & ~got).sum())} "
+        f"mismatches={mismatch}")
+    if mismatch:
+        raise AssertionError(f"nms_suppress kernel disagrees with its plain "
+                             f"twin on {mismatch} slots ({label})")
+    return int((got.int() - want.int()).abs().max())
+
+
+def nms_bound_ms(b: int, k: int):
+    """Least time for the suppression of (b, k) candidates on an H100: each
+    input and output byte moved once against the memory rate, and the IoU
+    arithmetic (~15 float32 ops per pair i < j, 5 per box area) against the
+    float32 rate.  The greedy scan's dependent steps are not in this bound."""
+    n_bytes = b * k * 4 * 4 + b * k + b * k
+    n_ops = b * (k * (k - 1) // 2 * 15 + 5 * k)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------- model set-up
+
+def serving_config(batch_people: int = MAX_PEOPLE):
+    from multiposenet_tpu_torch.config import Config, EvalConfig, ModelConfig
+
+    cfg = Config(model=ModelConfig(backbone="resnet101",
+                                   compute_dtype=torch.bfloat16),
+                 eval=EvalConfig(inp_size=INP))
+    return dataclasses.replace(
+        cfg,
+        detection=dataclasses.replace(cfg.detection, score_thresh=0.05,
+                                      test_score_thresh=0.1),
+        # random heatmaps are tiny: any positive local maximum is a peak
+        peaks=dataclasses.replace(cfg.peaks, thre1=0.0),
+        prn=dataclasses.replace(cfg.prn, max_people=batch_people))
+
+
+@torch.no_grad()
+def spread_detection_heads(model, images: torch.Tensor, logit_std=1.5,
+                           delta_std=1.0) -> None:
+    """Rescale the detection output convs (drawn N(0, 0.01)) so that the
+    random trunk's tiny features give logits and box deltas of order one.
+    The output convs are linear in their weights, so one forward measures
+    the spread and one multiply sets it."""
+    from multiposenet_tpu_torch.engine.inference import preprocess_on_device
+
+    spreads = {}
+
+    def hook(name):
+        # the weight's share of the output, in float32: under bf16 the
+        # output itself rounds away a spread this small around the bias
+        def fn(mod, inp, _out):
+            wx = torch.nn.functional.conv2d(inp[0].float(), mod.weight.float(),
+                                            None, padding=mod.padding)
+            spreads.setdefault(name, []).append(wx.std().item())
+        return fn
+
+    heads = {"cls": model.classificationModel.output,
+             "reg": model.regressionModel.output}
+    handles = [m.register_forward_hook(hook(n)) for n, m in heads.items()]
+    try:
+        model.full_forward(preprocess_on_device(images))
+    finally:
+        for h in handles:
+            h.remove()
+    for name, target in (("cls", logit_std), ("reg", delta_std)):
+        # the pyramid levels differ by orders of magnitude: scale the
+        # widest (P3, most anchors) to the target
+        s = max(spreads[name])
+        if not s > 0:
+            raise AssertionError(f"{name} head output has no spread")
+        heads[name].weight.mul_(target / s)
+
+
+def mixed_images(rng: np.random.RandomState, n: int):
+    sizes = [(480, 640), (640, 480), (480, 480), (360, 500), (720, 540),
+             (300, 300), (512, 384), (240, 320)]
+    out = []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        img = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        out.append(img)
+    return out
+
+
+def check_people(results, n_images: int) -> int:
+    if len(results) != n_images:
+        raise AssertionError(f"{len(results)} result lists for {n_images} images")
+    n_people = 0
+    for people in results:
+        if not isinstance(people, list):
+            raise AssertionError("a result is not a list")
+        for p in people:
+            kp = np.asarray(p["keypoints"], np.float64)
+            bb = np.asarray(p["bbox"], np.float64)
+            if kp.shape != (51,) or bb.shape != (4,):
+                raise AssertionError(f"bad person shapes {kp.shape} {bb.shape}")
+            if not (np.isfinite(kp).all() and np.isfinite(bb).all()
+                    and 0.0 <= p["score"] <= 1.0):
+                raise AssertionError(f"non-finite or out-of-range person {p}")
+            n_people += 1
+    if not any(results):
+        raise AssertionError("every image came back without people")
+    return n_people
+
+
+# ---------------------------------------------------------------- phase 3
+
+def check_against_cpu() -> None:
+    """Small float32 resnet50 pipeline on the card against the same pipeline
+    on the CPU (plain twins) on identical (heatmaps, cls, reg)."""
+    from multiposenet_tpu_torch.config import Config, EvalConfig, ModelConfig
+    from multiposenet_tpu_torch.engine.inference import (
+        format_pose_batch, make_e2e_pose_pipeline)
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+
+    size = 128
+    cfg = Config(model=ModelConfig(backbone="resnet50"),
+                 eval=EvalConfig(inp_size=size))
+    cfg = dataclasses.replace(
+        cfg,
+        detection=dataclasses.replace(cfg.detection, max_detections=32,
+                                      test_score_thresh=0.1),
+        peaks=dataclasses.replace(cfg.peaks, thre1=0.0, max_peaks_per_joint=8),
+        prn=dataclasses.replace(cfg.prn, max_people=8))
+    gpu_model = build_posenet(cfg.model, torch.device("cuda"), seed=SEED + 1,
+                              head_output_std=0.01)
+    imgs = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+        0, 256, (4, size, size, 3), dtype=np.uint8))
+    spread_detection_heads(gpu_model, imgs.cuda())
+    cpu_model = build_posenet(cfg.model, torch.device("cpu"),
+                              {k: v.cpu() for k, v in gpu_model.state_dict().items()})
+    gpu = make_e2e_pose_pipeline(gpu_model, cfg, (size, size), device="cuda")
+    cpu = make_e2e_pose_pipeline(cpu_model, cfg, (size, size), device="cpu")
+    scales = torch.tensor([1.0, 1.5, 2.0, 1.25])
+    heads = gpu.forward(imgs.cuda())
+    out_g, a_g = gpu.postprocess(*heads, scales.cuda())
+    out_c, a_c = cpu.postprocess(*(h.cpu() for h in heads), scales)
+    a_g = a_g.cpu()
+    for name in ("chosen", "active", "active_any", "peak_xy", "peak_valid",
+                 "box_valid"):
+        if not torch.equal(getattr(a_g, name), getattr(a_c, name)):
+            raise AssertionError(f"CUDA and CPU pipelines differ in {name}")
+    for name in ("boxes_xywh", "fallback_xy"):
+        torch.testing.assert_close(getattr(a_g, name), getattr(a_c, name),
+                                   rtol=1e-5, atol=1e-4)
+    if not torch.equal(out_g.detections.keep.cpu(), out_c.detections.keep):
+        raise AssertionError("CUDA and CPU NMS keep masks differ")
+    people = format_pose_batch(a_g)
+    n = sum(len(p) for p in people)
+    if not n:
+        raise AssertionError("the small reference input grouped nobody")
+    log(f"check: CUDA pipeline == CPU pipeline on 4 x {size} px resnet50 f32 "
+        f"({n} people, {int(out_c.detections.keep.sum())} boxes kept)")
+
+
+# ---------------------------------------------------------------- main
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
+              file=sys.stderr)
+        return 2
+    from multiposenet_tpu_torch.engine.inference import (
+        format_pose_batch, make_e2e_pose_pipeline)
+    from multiposenet_tpu_torch.engine.predictor import BatchPredictor
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+    from multiposenet_tpu_torch.ops import cuda_nms
+    from multiposenet_tpu_torch.ops.nms import nms_suppress_plain
+
+    torch.backends.cudnn.benchmark = True
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+    # ---- 1. build ----------------------------------------------------------
+    build_s = build_kernels([cuda_nms.SOURCE])
+
+    # ---- 2. kernel against its twin ----------------------------------------
+    gen = torch.Generator().manual_seed(SEED)
+    thresh = 0.5
+    fb, fv = (t.cuda() for t in fuzz_nms_inputs(BENCH_BATCH, K, gen))
+    max_err = check_nms_kernel(fb, fv, thresh, "fuzz")
+
+    cfg = serving_config()
+    t0 = time.perf_counter()
+    model = build_posenet(cfg.model, torch.device("cuda"), seed=SEED,
+                          head_output_std=0.01)
+    rng = np.random.RandomState(SEED)
+    bench_imgs = torch.from_numpy(
+        rng.randint(0, 256, (BENCH_BATCH, INP, INP, 3), dtype=np.uint8)).cuda()
+    spread_detection_heads(model, bench_imgs[:8])
+    torch.cuda.synchronize()
+    log(f"model: resnet101 FPN bf16 channels-last, random seed {SEED}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    pipe = make_e2e_pose_pipeline(model, cfg, (INP, INP), device="cuda")
+    rb, rv = nms_candidates(pipe, bench_imgs)
+    max_err = max(max_err, check_nms_kernel(rb, rv, thresh, "serving inputs"))
+
+    # plain, kernel, kernel, plain; the wrapper call as the path pays it
+    # (host checks, allocation, ctypes) and the kernel alone in a CUDA graph
+    call = lambda: cuda_nms.nms_suppress_cuda(rb, rv, thresh)  # noqa: E731
+    plain = lambda: nms_suppress_plain(rb, rv, thresh)  # noqa: E731
+    plain_ms = cuda_time_ms(plain, 20, warmup=2)
+    call_ms = cuda_time_ms(call, 200)
+    kernel_ms = graph_time_ms(call)
+    kernel_ms2 = graph_time_ms(call)
+    call_ms2 = cuda_time_ms(call, 200)
+    plain_ms2 = cuda_time_ms(plain, 20, warmup=2)
+    bound_ms, bound_by = nms_bound_ms(BENCH_BATCH, K)
+    log(f"kernel nms_suppress: {kernel_ms:.5f} / {kernel_ms2:.5f} ms per launch "
+        f"on the device (CUDA graph), {call_ms:.5f} / {call_ms2:.5f} ms per "
+        f"wrapper call, plain twin {plain_ms:.4f} / {plain_ms2:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}) at B={BENCH_BATCH} K={K} [{card}]")
+
+    # ---- 3. small reference check -------------------------------------------
+    check_against_cpu()
+
+    # ---- 4. serving: the main path ------------------------------------------
+    predictor = BatchPredictor(cfg, model=model, batch_size=SERVE_BATCH,
+                               device="cuda")
+    images = mixed_images(rng, 40)
+    predictor.predict(images[:SERVE_BATCH])          # warm-up (cuDNN plans)
+    torch.cuda.synchronize()
+    cuda_nms.launches = 0
+    t0 = time.perf_counter()
+    results = predictor.predict(images)
+    serve_s = time.perf_counter() - t0
+    launches = {"nms_suppress": cuda_nms.launches}
+    n_people = check_people(results, len(images))
+    n_batches = -(-len(images) // SERVE_BATCH)
+    log(f"serving: {len(images)} images of mixed sizes at batch {SERVE_BATCH} "
+        f"({n_batches} batches, ragged tail) in {serve_s:.3f} s; "
+        f"{sum(bool(r) for r in results)} images with people, {n_people} people; "
+        f"kernel launches {launches}")
+    for name, n in launches.items():
+        if n < n_batches:
+            raise AssertionError(f"kernel {name} launched {n} times on the "
+                                 f"serving path, expected >= {n_batches}")
+
+    # ---- 5. e2e at bench.py's configuration ----------------------------------
+    scales = torch.ones(BENCH_BATCH, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    e2e_ms = cuda_time_ms(lambda: pipe(bench_imgs, scales), 10, warmup=3)
+    fwd_ms = cuda_time_ms(lambda: pipe.forward(bench_imgs), 10, warmup=2)
+    heads = pipe.forward(bench_imgs)
+    post_ms = cuda_time_ms(lambda: pipe.postprocess(*heads, scales), 10, warmup=2)
+    t0 = time.perf_counter()
+    iters = 5
+    outs = [pipe(bench_imgs, scales)[1] for _ in range(iters)]
+    people = [format_pose_batch(a.cpu()) for a in outs]
+    host_s = (time.perf_counter() - t0) / iters
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_people(people[0], BENCH_BATCH)
+    log(f"e2e: batch {BENCH_BATCH} x {INP}px resnet101 bf16 max_people "
+        f"{MAX_PEOPLE}: {e2e_ms:.2f} ms/batch on the device = "
+        f"{BENCH_BATCH / e2e_ms * 1e3:.1f} images/s (forward {fwd_ms:.2f} ms, "
+        f"post-processing {post_ms:.2f} ms); with host formatting "
+        f"{host_s * 1e3:.2f} ms/batch = {BENCH_BATCH / host_s:.1f} images/s; "
+        f"peak memory {peak_gib:.2f} GiB [{card}]")
+
+    kernels = [{
+        "name": "nms_suppress",
+        "route": "cuda",
+        "source": "multiposenet_tpu_torch/csrc/nms_suppress.cu",
+        "replaces": "multiposenet_tpu/ops/pallas_nms.py:33",
+        "tpu_kernel": "multiposenet_tpu/ops/pallas_nms.py::_nms_suppress_kernel",
+        "launches": launches["nms_suppress"],
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "kernel_ms": kernel_ms,
+        "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "build_s": build_s.get(cuda_nms.SOURCE),
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

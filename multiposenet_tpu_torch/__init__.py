@@ -1,0 +1,20 @@
+"""multiposenet_tpu_torch — MultiPoseNet serving path in PyTorch and CUDA.
+
+A port of the JAX package ``multiposenet_tpu`` to PyTorch on an NVIDIA
+Hopper GPU.  The module layout mirrors the JAX package so each function has
+a counterpart under the same path:
+
+  config.py            configuration dataclasses (torch dtypes)
+  weights.py           Flax {params, batch_stats} tree -> torch state_dict
+  models/              ResNet-FPN, keypoint head, RetinaNet heads, PRN
+  ops/                 anchors, boxes, NMS (+ the CUDA suppression kernel),
+                       peaks, gaussian blur matrices, device grouping
+  eval/grouping.py     host formatting of grouped people
+  engine/inference.py  the end-to-end pose pipeline
+  engine/predictor.py  BatchPredictor, the serving front
+
+Public tensors keep the JAX package's layouts (NHWC images, (B, H/4, W/4, 18)
+heatmaps, (B, A, 1) / (B, A, 4) detection heads in (y, x, anchor) order), so
+the two packages compare like with like.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
+"""

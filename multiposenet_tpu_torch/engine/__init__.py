@@ -1,0 +1,1 @@
+"""engine of multiposenet_tpu_torch (see the package docstring)."""

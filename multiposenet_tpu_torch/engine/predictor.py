@@ -1,0 +1,128 @@
+"""BatchPredictor — the serving front, PyTorch twin of
+multiposenet_tpu/engine/predictor.py.
+
+- letterboxes arbitrary BGR images to the model's square input on the
+  host (pad to a square, then a bilinear resize like cv2.resize
+  INTER_LINEAR, done here without cv2),
+- packs them into fixed-size batches, zero-padding a ragged tail, and
+  uploads each batch from pinned memory,
+- runs the whole pose pipeline (engine/inference.E2EPosePipeline) on the
+  device per batch; only dict formatting runs on the host,
+- unpacks per-image person results in original-image coordinates.
+
+Batches are dispatched two deep: PyTorch queues batch k+1 on the device
+while the host formats batch k.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from multiposenet_tpu_torch.config import Config, resolve_device
+from multiposenet_tpu_torch.engine.inference import (
+    PoseAssignments,
+    format_pose_batch,
+    make_e2e_pose_pipeline,
+)
+from multiposenet_tpu_torch.models.posenet import PoseNet, build_posenet
+
+
+def resize_bilinear_u8(img: torch.Tensor, size: int) -> torch.Tensor:
+    """(H, W, C) uint8 -> (size, size, C) uint8 with half-pixel-centre
+    bilinear taps clamped at the border, the geometry of cv2.resize
+    INTER_LINEAR.  cv2 rounds fixed-point weights, so the two differ by at
+    most one uint8 step."""
+    x = img.permute(2, 0, 1)[None].float()
+    y = F.interpolate(x, size=(size, size), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
+
+
+class BatchPredictor:
+    """Serve a PoseNet: ``predict(images_bgr) -> per-image person lists``.
+
+    The model comes from ``state_dict`` (loaded strictly into a new PoseNet)
+    or is passed ready-built as ``model``.  Runs on ``cuda`` unless
+    ``device`` names another device; without a GPU and without an explicit
+    ``device="cpu"`` it raises.
+    """
+
+    def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
+                 batch_size: int = 8, device=None,
+                 model: Optional[PoseNet] = None):
+        self.device = resolve_device(device)
+        if model is None:
+            if state_dict is None:
+                raise ValueError("BatchPredictor needs a state_dict or a model")
+            model = build_posenet(cfg.model, self.device, state_dict)
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.inp = cfg.eval.inp_size
+        self.model = model
+        self._pipeline = make_e2e_pose_pipeline(model, cfg, (self.inp, self.inp),
+                                                device=self.device)
+
+    # -- host-side packing ------------------------------------------------
+
+    def _pack(self, img_bgr: np.ndarray) -> Tuple[torch.Tensor, float]:
+        """BGR (H, W, 3) uint8 -> RGB (inp, inp, 3) uint8 on the host and
+        the scale from model pixels back to original pixels.  The image is
+        zero-padded to a square at the bottom/right; when that square is
+        already ``inp`` wide no resize runs and the pixels are exact."""
+        inp = self.inp
+        shape_dst = int(np.max(img_bgr.shape[:2]))
+        scale = float(shape_dst) / inp
+        pad = abs(img_bgr.shape[1] - img_bgr.shape[0])
+        sq = np.pad(img_bgr, ([0, pad], [0, pad], [0, 0]),
+                    "constant")[:shape_dst, :shape_dst]
+        t = torch.from_numpy(np.ascontiguousarray(sq))
+        if shape_dst != inp:
+            t = resize_bilinear_u8(t, inp)
+        return t.flip(-1), scale
+
+    # -- public API --------------------------------------------------------
+
+    @staticmethod
+    def _finish_chunk(assigns: PoseAssignments, n_real: int) -> List[List[Dict]]:
+        """Fetch one dispatched chunk and format it per image."""
+        return format_pose_batch(assigns.cpu())[:n_real]
+
+    def predict(self, images_bgr: Sequence[np.ndarray]) -> List[List[Dict]]:
+        """BGR images (any sizes) -> per-image person result lists."""
+        results: List[List[Dict]] = []
+        pending = []
+        for lo in range(0, len(images_bgr), self.batch_size):
+            chunk = images_bgr[lo: lo + self.batch_size]
+            pin = self.device.type == "cuda"
+            batch = torch.zeros((self.batch_size, self.inp, self.inp, 3),
+                                dtype=torch.uint8, pin_memory=pin)
+            scales = torch.ones(self.batch_size, dtype=torch.float32,
+                                pin_memory=pin)
+            for i, im in enumerate(chunk):
+                batch[i], scales[i] = self._pack(im)
+            # pinned uploads queue behind the device's work instead of
+            # waiting for it
+            _, assigns = self._pipeline(
+                batch.to(self.device, non_blocking=True),
+                scales.to(self.device, non_blocking=True))
+            pending.append((assigns, len(chunk)))
+            if len(pending) > 2:
+                results.extend(self._finish_chunk(*pending.pop(0)))
+        for assigns, n_real in pending:
+            results.extend(self._finish_chunk(assigns, n_real))
+        return results
+
+    def predict_stream(self, images: Iterable[np.ndarray]
+                       ) -> Iterable[List[Dict]]:
+        buf: List[np.ndarray] = []
+        for im in images:
+            buf.append(im)
+            if len(buf) == self.batch_size:
+                yield from self.predict(buf)
+                buf = []
+        if buf:
+            yield from self.predict(buf)

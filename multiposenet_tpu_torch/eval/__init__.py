@@ -1,0 +1,1 @@
+"""eval of multiposenet_tpu_torch (see the package docstring)."""

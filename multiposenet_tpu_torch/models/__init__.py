@@ -1,0 +1,1 @@
+"""models of multiposenet_tpu_torch (see the package docstring)."""

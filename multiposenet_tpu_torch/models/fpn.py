@@ -1,0 +1,150 @@
+"""ResNet-50/101 backbone + dual-head FPN — PyTorch twin of
+multiposenet_tpu/models/fpn.py.
+
+One bottom-up ResNet trunk feeds two independent FPN top-downs: a detection
+pyramid P3..P7 (RetinaNet) and a keypoint pyramid P2..P5, merged with
+nearest-neighbour upsample-adds (reference network/fpn.py:37-134).
+
+Modules take and return NCHW tensors (run them in ``channels_last`` memory
+format on the GPU); ``models/posenet.PoseNet`` converts from and to the JAX
+package's NHWC layout at its public methods.  Submodule names follow the
+reference ``state_dict`` keys (``fpn.layer3.22.downsample.0.weight``).
+BatchNorm runs in eval mode with eps 1e-5.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-5
+
+
+class FPNFeatures(NamedTuple):
+    keypoint: Tuple[torch.Tensor, ...]   # (fp2, fp3, fp4, fp5) strides 4..32
+    detection: Tuple[torch.Tensor, ...]  # (p3, p4, p5, p6, p7) strides 8..128
+
+
+def upsample_nearest(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour upsample of a (B, C, H, W) tensor to ``target_hw``.
+
+    Integer ratios are a plain repeat, ``out[i] = in[i // k]``.  Other ratios
+    pick ``in[floor((i + 0.5) * H / th)]`` with the product and quotient
+    rounded in float32 in that order, as ``jax.image.resize(method="nearest")``
+    does (fpn.py:46), so both packages pick the same source pixels.
+    """
+    h, w = x.shape[2], x.shape[3]
+    th, tw = int(target_hw[0]), int(target_hw[1])
+    if (th, tw) == (h, w):
+        return x
+    if th % h == 0 and tw % w == 0:
+        return F.interpolate(x, scale_factor=(th // h, tw // w), mode="nearest")
+
+    def offsets(n_in: int, n_out: int) -> torch.Tensor:
+        pos = (torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5)
+        return torch.floor(pos * n_in / n_out).to(torch.int64)
+
+    x = x.index_select(2, offsets(h, th)) if th != h else x
+    return x.index_select(3, offsets(w, tw)) if tw != w else x
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=BN_EPS)
+
+
+class Bottleneck(nn.Module):
+    """ResNet bottleneck block, expansion 4 (reference fpn.py:9-34)."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn2 = _bn(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = _bn(planes * 4)
+        self.downsample = None
+        if stride != 1 or inplanes != planes * 4:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+                _bn(planes * 4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return F.relu(out + x)
+
+
+class ResNetFPN(nn.Module):
+    """ResNet trunk + dual FPN heads; block_counts (3,4,6,3) is resnet50,
+    (3,4,23,3) resnet101."""
+
+    def __init__(self, block_counts: Sequence[int] = (3, 4, 23, 3),
+                 channels: int = 256):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = _bn(64)
+        inplanes = 64
+        for li, (planes, blocks, stride) in enumerate(
+                zip((64, 128, 256, 512), block_counts, (1, 2, 2, 2)), start=1):
+            layer: List[nn.Module] = []
+            for i in range(blocks):
+                layer.append(Bottleneck(inplanes, planes, stride if i == 0 else 1))
+                inplanes = planes * 4
+            self.add_module(f"layer{li}", nn.Sequential(*layer))
+
+        ch = channels
+        conv = lambda cin, k, s=1: nn.Conv2d(cin, ch, k, stride=s,  # noqa: E731
+                                             padding=k // 2)
+        # detection pyramid (reference fpn.py:103-112)
+        self.conv6 = conv(2048, 3, 2)
+        self.conv7 = conv(ch, 3, 2)
+        self.latlayer1 = conv(2048, 1)
+        self.latlayer2 = conv(1024, 1)
+        self.latlayer3 = conv(512, 1)
+        self.toplayer0 = conv(ch, 3)
+        self.toplayer1 = conv(ch, 3)
+        self.toplayer2 = conv(ch, 3)
+        # keypoint pyramid (reference fpn.py:114-122)
+        self.toplayer = conv(2048, 1)
+        self.flatlayer1 = conv(1024, 1)
+        self.flatlayer2 = conv(512, 1)
+        self.flatlayer3 = conv(256, 1)
+        self.smooth1 = conv(ch, 3)
+        self.smooth2 = conv(ch, 3)
+        self.smooth3 = conv(ch, 3)
+
+    def forward(self, x: torch.Tensor) -> FPNFeatures:
+        c1 = F.relu(self.bn1(self.conv1(x)))
+        c1 = F.max_pool2d(c1, 3, stride=2, padding=1)
+        c2 = self.layer1(c1)   # stride 4
+        c3 = self.layer2(c2)   # stride 8
+        c4 = self.layer3(c3)   # stride 16
+        c5 = self.layer4(c4)   # stride 32
+
+        hw = lambda t: t.shape[2:4]  # noqa: E731
+        p6 = self.conv6(c5)
+        p7 = self.conv7(F.relu(p6))
+        p5 = self.latlayer1(c5)
+        p4 = upsample_nearest(p5, hw(c4)) + self.latlayer2(c4)
+        p3 = upsample_nearest(p4, hw(c3)) + self.latlayer3(c3)
+        p5 = self.toplayer0(p5)
+        p4 = self.toplayer1(p4)
+        p3 = self.toplayer2(p3)
+
+        fp5 = self.toplayer(c5)
+        fp4 = upsample_nearest(fp5, hw(c4)) + self.flatlayer1(c4)
+        fp3 = upsample_nearest(fp4, hw(c3)) + self.flatlayer2(c3)
+        fp2 = upsample_nearest(fp3, hw(c2)) + self.flatlayer3(c2)
+        fp4 = self.smooth1(fp4)
+        fp3 = self.smooth2(fp3)
+        fp2 = self.smooth3(fp2)
+        return FPNFeatures(keypoint=(fp2, fp3, fp4, fp5),
+                           detection=(p3, p4, p5, p6, p7))

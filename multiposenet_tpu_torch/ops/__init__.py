@@ -1,0 +1,1 @@
+"""ops of multiposenet_tpu_torch (see the package docstring)."""

@@ -1,0 +1,70 @@
+"""Kernel K1: greedy NMS suppression as a hand-written CUDA kernel
+(csrc/nms_suppress.cu), the port of the TPU kernel
+multiposenet_tpu/ops/pallas_nms.py::_nms_suppress_kernel.
+
+Built with nvcc for ``sm_90a`` at first use (``_build.py``) and called
+through ctypes on PyTorch's current stream.  ``ops/nms.nms_suppress`` sends
+CUDA tensors here and CPU tensors to the plain PyTorch twin
+``ops/nms.nms_suppress_plain``; there is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from multiposenet_tpu_torch import _build
+
+SOURCE = "nms_suppress.cu"
+MAX_K = 1024
+
+# kernel launches since import (chip_smoke.py zeroes and reads it to show
+# that the serving path went through the kernel)
+launches = 0
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load(SOURCE).nms_suppress_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def nms_suppress_cuda(sorted_boxes: torch.Tensor, valid: torch.Tensor,
+                      iou_thresh: float) -> torch.Tensor:
+    """(B, K, 4) float32 score-sorted x1y1x2y2 boxes + (B, K) bool validity
+    on one CUDA device -> (B, K) bool keep mask.  Raises on a wrong device,
+    dtype, shape or layout, on a build failure and on a refused launch."""
+    global launches
+    if sorted_boxes.device.type != "cuda" or valid.device != sorted_boxes.device:
+        raise ValueError("nms_suppress_cuda takes CUDA tensors on one device, "
+                         f"got {sorted_boxes.device} and {valid.device}")
+    if sorted_boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError("nms_suppress_cuda takes float32 boxes and a bool "
+                        f"mask, got {sorted_boxes.dtype} and {valid.dtype}")
+    if (sorted_boxes.dim() != 3 or sorted_boxes.shape[2] != 4
+            or tuple(valid.shape) != tuple(sorted_boxes.shape[:2])):
+        raise ValueError(f"shapes {tuple(sorted_boxes.shape)} and "
+                         f"{tuple(valid.shape)} are not (B, K, 4) and (B, K)")
+    b, k = valid.shape
+    if k > MAX_K:
+        raise ValueError(f"K = {k} candidates exceeds the kernel's {MAX_K}")
+    if not (sorted_boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("nms_suppress_cuda takes contiguous tensors")
+    keep = torch.empty((b, k), dtype=torch.bool, device=valid.device)
+    if b == 0 or k == 0:
+        return keep
+    launch = _launcher()
+    with torch.cuda.device(valid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            sorted_boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            b, k, float(iou_thresh), stream)
+    if err != 0:
+        raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
+    launches += 1
+    return keep
