@@ -9,10 +9,16 @@ Phases (any failure exits non-zero, and no result line is printed):
               source of the port built with nvcc, one process per source,
               started together;
   2. kernels  each hand-written kernel against its plain PyTorch twin on the
-              card at the serving path's shapes (NMS suppression: 64 images
-              x 100 candidates, fuzzed with duplicates, IoU exactly at the
-              threshold, degenerate boxes and invalid slots), bit for bit,
-              then timed with CUDA events beside the twin;
+              card, bit for bit: NMS suppression at every (images,
+              candidates) size where its word-blocked scan changes shape, up
+              to 1024 candidates, fuzzed with duplicates, IoU exactly at the
+              threshold, degenerate boxes and invalid slots, a suppression
+              chain across 32-box words, and the serving path's own
+              candidates (64 images x 100).  Then timed with CUDA events and
+              CUDA graphs beside the twin and beside a bare ctypes launch,
+              with a probe build of the kernel whose kernels stop after each
+              stage (the split of its time, and the launch floor of an
+              empty kernel);
   3. check    the CUDA pipeline against the same pipeline on the CPU (plain
               twins) on a small float32 input: equal grouped outputs;
   4. serving  BatchPredictor at full width (ResNet-101 FPN, 480 px, bf16,
@@ -46,6 +52,10 @@ SERVE_BATCH = 16
 BENCH_BATCH = 64
 MAX_PEOPLE = 20
 K = 100                      # max_detections at the serving configuration
+# (images, candidates) for the suppression kernel: one word, a word's edges,
+# two words, the serving size, a 9th word with one box, and MAX_K
+NMS_CASES = ((1, 1), (3, 31), (3, 32), (3, 33), (2, 64), (BENCH_BATCH, K),
+             (4, 257), (2, 1024))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory rate
 F32_FLOPS = 67e12            # H100 SXM float32 rate outside the tensor cores
 
@@ -61,16 +71,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_kernels(sources) -> dict:
+def build_kernels(sources):
+    """Every CUDA source of the port and K1's probe build, one nvcc process
+    each, all started together.  Returns the build seconds of each source
+    and the loaded probe library."""
     from multiposenet_tpu_torch import _build
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
-        for src, path in zip(sources, ex.map(_build.build, sources)):
-            log(f"build: {src} -> {path.name}")
-    total = time.perf_counter() - t0
-    log(f"build: {len(sources)} source(s) in {total:.2f} s")
-    return dict(_build.build_seconds)
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as ex:
+        built = {src: ex.submit(_build.build, src) for src in sources}
+        probe = ex.submit(build_nms_probe)
+        for src, fut in built.items():
+            log(f"build: {src} -> {fut.result().name}")
+        probe = probe.result()
+    log(f"build: {len(sources)} source(s) and the probe build in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return dict(_build.build_seconds), probe
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -119,18 +135,38 @@ def fuzz_nms_inputs(b: int, k: int, gen: torch.Generator):
     wh = u(b, k, 2) * 150 + 8
     boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
     boxes[:, 1::5] = boxes[:, 0::5][:, : boxes[:, 1::5].shape[1]]     # duplicates
-    xy = torch.floor(u(b, k // 10, 2) * 300)
-    boxes[:, 2::10, :2] = xy                                         # IoU == 0.5
-    boxes[:, 2::10, 2:] = xy + 9
-    boxes[:, 3::10, :2] = xy
-    boxes[:, 3::10, 2] = xy[..., 0] + 9
-    boxes[:, 3::10, 3] = xy[..., 1] + 4
+    n = len(range(3, k, 10))                                         # IoU == 0.5
+    xy = torch.floor(u(b, n, 2) * 300)
+    first, second = slice(2, 2 + 10 * n, 10), slice(3, 3 + 10 * n, 10)
+    boxes[:, first, :2] = xy
+    boxes[:, first, 2:] = xy + 9
+    boxes[:, second, :2] = xy
+    boxes[:, second, 2] = xy[..., 0] + 9
+    boxes[:, second, 3] = xy[..., 1] + 4
     boxes[:, 4::7, 2] = boxes[:, 4::7, 0] - u(b, boxes[:, 4::7].shape[1]) * 5  # x2 < x1
     boxes[:, 6::9, 2:] = boxes[:, 6::9, :2] - 1.0                    # zero area
     valid = u(b, k) < 0.85
-    valid[0] = False
-    valid[1] = True
+    if b >= 3:
+        valid[0] = False
+        valid[1] = True
     return boxes.float().contiguous(), valid.contiguous()
+
+
+def chain_nms_inputs(k: int, gen: torch.Generator):
+    """Two images of k candidates with a suppression chain planted far from
+    the fuzz: box a (slot 3, word 0) suppresses b (slot 35, word 1), and b
+    overlaps c (slot k - 2, the last word).  In image 0 b is dead, so c
+    survives; in image 1 a is invalid, so b lives and c goes.  Returns the
+    inputs and the keep bits expected at (a, b, c) in each image."""
+    boxes, valid = fuzz_nms_inputs(2, k, gen)
+    slots = [3, 35, k - 2]
+    boxes[:, slots] = torch.tensor([[1000., 1000., 1019., 1019.],
+                                    [1006., 1000., 1025., 1019.],
+                                    [1012., 1000., 1031., 1019.]])
+    valid[:, slots] = True
+    valid[1, slots[0]] = False
+    expect = torch.tensor([[True, False, True], [False, True, False]])
+    return boxes, valid, slots, expect
 
 
 def nms_candidates(pipe, images: torch.Tensor):
@@ -147,7 +183,7 @@ def nms_candidates(pipe, images: torch.Tensor):
     return top_boxes.float().contiguous(), valid.contiguous()
 
 
-def check_nms_kernel(boxes, valid, thresh: float, label: str) -> int:
+def check_nms_kernel(boxes, valid, thresh: float, label: str) -> tuple:
     from multiposenet_tpu_torch.ops.cuda_nms import nms_suppress_cuda
     from multiposenet_tpu_torch.ops.nms import nms_suppress_plain
 
@@ -161,7 +197,7 @@ def check_nms_kernel(boxes, valid, thresh: float, label: str) -> int:
     if mismatch:
         raise AssertionError(f"nms_suppress kernel disagrees with its plain "
                              f"twin on {mismatch} slots ({label})")
-    return int((got.int() - want.int()).abs().max())
+    return got, int((got.int() - want.int()).abs().max())
 
 
 def nms_bound_ms(b: int, k: int):
@@ -174,6 +210,158 @@ def nms_bound_ms(b: int, k: int):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# Probe kernels, appended to a copy of csrc/nms_suppress.cu and built apart
+# from the package: the kernel's stages run alone, so that differences of
+# their times split the kernel's time.  Stage 0 launches an empty kernel at
+# K1's launch shape; 1 stages; 2 stages and builds the bitmask.  Each writes
+# a keep mask that depends on what it built, so nothing is optimised away.
+# They call the source's own device functions (Shared, stage, build_mask,
+# write_keep, mask_pitch, kThreads): a change of those names or signatures
+# is made here too.
+NMS_PROBE_CU = r"""
+namespace {
+template <int kStages>
+__global__ void __launch_bounds__(kThreads)
+nms_probe_kernel(const float4* __restrict__ boxes,
+                 const uint8_t* __restrict__ valid,
+                 uint8_t* __restrict__ keep, int k, float thresh) {
+  if (kStages == 0) return;
+  extern __shared__ float4 smem[];
+  const int words = (k + 31) / 32;
+  const Shared s(smem, k, words);
+  const size_t img = blockIdx.x;
+  stage(s, boxes + img * k, valid + img * k, k, words);
+  __syncthreads();
+  if (kStages >= 2) {
+    build_mask(s, k, words, thresh);
+    __syncthreads();
+  }
+  const int t = threadIdx.x;
+  if (t < words)
+    s.kept[t] = s.valid[t] & ~(kStages >= 2
+        ? s.mask[32 * t * mask_pitch(words) + t]
+        : __float_as_uint(s.area[32 * t]));
+  __syncthreads();
+  write_keep(s, keep + img * k, k);
+}
+}  // namespace
+
+extern "C" int nms_probe_launch(int stages, const void* boxes,
+                                const void* valid, void* keep, int b, int k,
+                                float thresh, void* stream) {
+  void (*kernel)(const float4*, const uint8_t*, uint8_t*, int, float) =
+      stages == 0 ? nms_probe_kernel<0>
+                  : stages == 1 ? nms_probe_kernel<1> : nms_probe_kernel<2>;
+  const size_t smem = nms_suppress_smem_bytes(k);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
+      static_cast<uint8_t*>(keep), k, thresh);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+NMS_PROBE_STAGES = ("launch", "stage", "bitmask")
+
+
+def build_nms_probe():
+    """csrc/nms_suppress.cu with the probe kernels appended, built with the
+    package's flags into its build directory under a hash of the text and
+    the flags, as ``_build`` keys the package's libraries, and loaded."""
+    import ctypes
+    import hashlib
+    import os
+
+    from multiposenet_tpu_torch import _build
+
+    src = (_build.CSRC_DIR / "nms_suppress.cu").read_text() + NMS_PROBE_CU
+    flags = (*_build.NVCC_FLAGS, "-Xptxas", "-v")
+    digest = hashlib.sha256((src + " ".join(flags)).encode()).hexdigest()[:16]
+    lib = _build.BUILD_DIR / f"nms_probe-{digest}.so"
+    if not lib.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu = lib.with_suffix(".cu")
+        cu.write_text(src)
+        tmp = lib.with_name(lib.stem + ".tmp.so")
+        proc = subprocess.run([_build.nvcc_path(), *flags, "-o", str(tmp),
+                               str(cu)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {cu.name}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+        # registers and spills of each kernel, as the package's build has them
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"ptxas [probe build]: {line.strip()}")
+    so = ctypes.CDLL(str(lib))
+    for fn in (so.nms_probe_launch, so.nms_suppress_launch):
+        fn.restype = ctypes.c_int
+    so.nms_probe_launch.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    so.nms_suppress_launch.argtypes = so.nms_probe_launch.argtypes[1:]
+    return so
+
+
+def time_nms_probes(probe, boxes, valid, thresh: float, rounds: int = 2):
+    """Device ms per launch (CUDA graph) of each probe stage and of the whole
+    kernel of the probe build, in ``rounds`` rounds; the whole kernel is
+    first held against the plain twin.  Returns the best of the rounds."""
+    from multiposenet_tpu_torch.ops.nms import nms_suppress_plain
+
+    b, k = valid.shape
+    keep = torch.empty((b, k), dtype=torch.bool, device=valid.device)
+    args = (boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+            float(thresh))
+
+    def launcher(stages):
+        def fn():
+            stream = torch.cuda.current_stream().cuda_stream
+            err = (probe.nms_suppress_launch(*args, stream) if stages is None
+                   else probe.nms_probe_launch(stages, *args, stream))
+            if err != 0:
+                raise RuntimeError(f"probe launch failed: CUDA error {err}")
+        return fn
+
+    launcher(None)()
+    torch.cuda.synchronize()
+    if not torch.equal(keep, nms_suppress_plain(boxes, valid, thresh)):
+        raise AssertionError("nms_suppress [probe build] disagrees with its "
+                             "plain twin")
+    names = (*NMS_PROBE_STAGES, "whole")
+    times = {n: [] for n in names}
+    for _ in range(rounds):
+        for stages, name in enumerate(names):
+            fn = launcher(stages if stages < len(NMS_PROBE_STAGES) else None)
+            times[name].append(graph_time_ms(fn))
+    ms = {n: min(t) for n, t in times.items()}
+    log("kernel nms_suppress probe: "
+        + ", ".join(f"{n} {' / '.join(f'{x:.5f}' for x in t)} ms"
+                    for n, t in times.items())
+        + f"; split of the best: launch {ms['launch']:.5f}, staging "
+        f"{ms['stage'] - ms['launch']:.5f}, bitmask "
+        f"{ms['bitmask'] - ms['stage']:.5f}, scan and write "
+        f"{ms['whole'] - ms['bitmask']:.5f} ms at B={b} K={k}")
+    return ms
+
+
+def host_ms_per_call(fn, calls: int = 500) -> float:
+    """Host time per call of ``fn`` with no synchronisation between calls:
+    what the caller pays on the CPU to enqueue one launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return host * 1e3
 
 
 # ---------------------------------------------------------------- model set-up
@@ -333,13 +521,24 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
     # ---- 1. build ----------------------------------------------------------
-    build_s = build_kernels([cuda_nms.SOURCE])
+    build_s, probe = build_kernels([cuda_nms.SOURCE])
 
     # ---- 2. kernel against its twin ----------------------------------------
     gen = torch.Generator().manual_seed(SEED)
     thresh = 0.5
-    fb, fv = (t.cuda() for t in fuzz_nms_inputs(BENCH_BATCH, K, gen))
-    max_err = check_nms_kernel(fb, fv, thresh, "fuzz")
+    errs = []
+    for b, k in NMS_CASES:
+        fb, fv = (t.cuda() for t in fuzz_nms_inputs(b, k, gen))
+        errs.append(check_nms_kernel(fb, fv, thresh, "fuzz")[1])
+    for k in (K, cuda_nms.MAX_K):
+        cb, cv, slots, expect = chain_nms_inputs(k, gen)
+        got, err = check_nms_kernel(cb.cuda(), cv.cuda(), thresh,
+                                    "chain across words")
+        errs.append(err)
+        if not torch.equal(got[:, slots].cpu(), expect):
+            raise AssertionError(f"chain across words at K={k}: keep "
+                                 f"{got[:, slots].tolist()}, expected "
+                                 f"{expect.tolist()}")
 
     cfg = serving_config()
     t0 = time.perf_counter()
@@ -354,23 +553,39 @@ def main() -> int:
         f"built in {time.perf_counter() - t0:.1f} s")
     pipe = make_e2e_pose_pipeline(model, cfg, (INP, INP), device="cuda")
     rb, rv = nms_candidates(pipe, bench_imgs)
-    max_err = max(max_err, check_nms_kernel(rb, rv, thresh, "serving inputs"))
+    max_err = max(*errs, check_nms_kernel(rb, rv, thresh, "serving inputs")[1])
 
     # plain, kernel, kernel, plain; the wrapper call as the path pays it
-    # (host checks, allocation, ctypes) and the kernel alone in a CUDA graph
+    # (host checks, allocation, stream, ctypes) and the kernel alone in a CUDA
+    # graph.  Its host time is paired with that of a bare ctypes launch of
+    # the probe build's copy of the kernel (no checks, stream looked up once):
+    # wrapper, bare, bare, wrapper.
     call = lambda: cuda_nms.nms_suppress_cuda(rb, rv, thresh)  # noqa: E731
     plain = lambda: nms_suppress_plain(rb, rv, thresh)  # noqa: E731
+    bare_keep = torch.empty_like(rv)
+    bare_args = (rb.data_ptr(), rv.data_ptr(), bare_keep.data_ptr(),
+                 BENCH_BATCH, K, thresh, torch.cuda.current_stream().cuda_stream)
+    bare = lambda: probe.nms_suppress_launch(*bare_args)  # noqa: E731
     plain_ms = cuda_time_ms(plain, 20, warmup=2)
     call_ms = cuda_time_ms(call, 200)
     kernel_ms = graph_time_ms(call)
+    host_ms = host_ms_per_call(call)
+    bare_ms = host_ms_per_call(bare)
+    bare_ms2 = host_ms_per_call(bare)
+    host_ms2 = host_ms_per_call(call)
     kernel_ms2 = graph_time_ms(call)
     call_ms2 = cuda_time_ms(call, 200)
     plain_ms2 = cuda_time_ms(plain, 20, warmup=2)
     bound_ms, bound_by = nms_bound_ms(BENCH_BATCH, K)
+    bound_share = bound_ms / kernel_ms
     log(f"kernel nms_suppress: {kernel_ms:.5f} / {kernel_ms2:.5f} ms per launch "
         f"on the device (CUDA graph), {call_ms:.5f} / {call_ms2:.5f} ms per "
-        f"wrapper call, plain twin {plain_ms:.4f} / {plain_ms2:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({bound_by}) at B={BENCH_BATCH} K={K} [{card}]")
+        f"wrapper call, {host_ms:.5f} / {host_ms2:.5f} ms of host time per "
+        f"wrapper call against {bare_ms:.5f} / {bare_ms2:.5f} ms per bare "
+        f"ctypes launch, plain twin {plain_ms:.4f} / {plain_ms2:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}), bound share {bound_share:.5f} at "
+        f"B={BENCH_BATCH} K={K} [{card}]")
+    split = time_nms_probes(probe, rb, rv, thresh)
 
     # ---- 3. small reference check -------------------------------------------
     check_against_cpu()
@@ -429,9 +644,13 @@ def main() -> int:
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "call_ms": call_ms,
+        "host_ms": host_ms,
+        "bare_host_ms": bare_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_share": bound_share,
+        "probe_ms": split,
         "library_ms": None,
         "build_s": build_s.get(cuda_nms.SOURCE),
     }]

@@ -2,6 +2,18 @@
 (csrc/nms_suppress.cu), the port of the TPU kernel
 multiposenet_tpu/ops/pallas_nms.py::_nms_suppress_kernel.
 
+One launch per batch, one 1024-thread block per image, nothing leaves the
+chip between the loads and the keep mask.  The kernel is bound by latency,
+not by bytes or operations: its stages are a staging load, the suppression
+bitmask built in parallel (one ``__ballot_sync`` per (row, 32-box word)
+task, shared out among 32 warps), and a greedy scan in one warp that goes
+32 boxes at a time, with register steps for the rows of a word that
+suppress something in it and one ``__reduce_or_sync`` per later word.
+The keep mask is bit-equal to the plain twin: each float op rounds on its
+own in ``box_iou_plus1``'s order, min and max propagate NaN, and the
+divide stays; only a pair whose intersection is 0 or NaN skips it, when
+``iou_thresh >= 0``.
+
 Built with nvcc for ``sm_90a`` at first use (``_build.py``) and called
 through ctypes on PyTorch's current stream.  ``ops/nms.nms_suppress`` sends
 CUDA tensors here and CPU tensors to the plain PyTorch twin
@@ -55,15 +67,22 @@ def nms_suppress_cuda(sorted_boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"K = {k} candidates exceeds the kernel's {MAX_K}")
     if not (sorted_boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_suppress_cuda takes contiguous tensors")
-    keep = torch.empty((b, k), dtype=torch.bool, device=valid.device)
+    if sorted_boxes.data_ptr() % 16:
+        raise ValueError("nms_suppress_cuda reads each box as one 16-byte "
+                         "load: the boxes must start 16-byte aligned")
+    keep = torch.empty_like(valid)
     if b == 0 or k == 0:
         return keep
     launch = _launcher()
-    with torch.cuda.device(valid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            sorted_boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-            b, k, float(iou_thresh), stream)
+    args = (sorted_boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+            float(iou_thresh), torch.cuda.current_stream(valid.device).cuda_stream)
+    # a kernel launches only into a stream of the current device; the device
+    # context, which costs host time on every call, is entered only if needed
+    if valid.device.index == torch.cuda.current_device():
+        err = launch(*args)
+    else:
+        with torch.cuda.device(valid.device):
+            err = launch(*args)
     if err != 0:
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
     launches += 1

@@ -94,9 +94,26 @@ def _fuzz_boxes(rng, n, lo=20, hi=300):
     return np.concatenate([ctr - wh / 2, ctr + wh / 2], 1).astype(np.float32)
 
 
+# box a in word 0, b in word 1, c in the last 32-box word: IoU(a, b) and
+# IoU(b, c) are 280 / 520 > 0.5, IoU(a, c) is 160 / 640.  Far from the fuzz.
+_CHAIN = np.array([[1000, 1000, 1019, 1019], [1006, 1000, 1025, 1019],
+                   [1012, 1000, 1031, 1019]], np.float32)
+
+
+def _chain_slots(k):
+    # at K = 40 there are two words only: c (slot 38) shares b's word 1
+    return 3, 35, k - 2
+
+
 def _suppress_case(kind, rng, k=40):
     boxes = _fuzz_boxes(rng, k, 20, 120)
     valid = rng.rand(k) < 0.85
+    if kind.startswith("chain_across_words"):
+        # a suppresses b; b is dead, so c survives.  In the twin a is invalid:
+        # b lives and suppresses c.
+        slots = list(_chain_slots(k))
+        boxes[slots] = _CHAIN
+        valid[slots] = [kind == "chain_across_words", True, True]
     if kind == "duplicates":
         boxes[1::3] = boxes[0::3][: len(boxes[1::3])]
     elif kind == "exact_threshold":
@@ -114,11 +131,19 @@ def _suppress_case(kind, rng, k=40):
     return boxes, valid
 
 
-@pytest.mark.parametrize("kind", ["fuzz", "duplicates", "exact_threshold",
-                                  "degenerate", "all_invalid"])
-def test_nms_suppress_plain_equals_pallas_kernel(kind):
-    rng = np.random.RandomState(sum(map(ord, kind)))
-    boxes, valid = _suppress_case(kind, rng)
+_SUPPRESS_KINDS = ["fuzz", "duplicates", "exact_threshold", "degenerate",
+                   "all_invalid", "chain_across_words",
+                   "chain_across_words_a_invalid"]
+
+
+# K = 100 is the serving K; 200 spans 7 words of 32 (Pallas pads it to 256).
+# The K = 40 cases keep their plain kind as id, and their seed.
+@pytest.mark.parametrize("kind,k", [
+    pytest.param(kind, k, id=kind if k == 40 else f"{kind}-k{k}")
+    for k in (40, 100, 200) for kind in _SUPPRESS_KINDS])
+def test_nms_suppress_plain_equals_pallas_kernel(kind, k):
+    rng = np.random.RandomState(sum(map(ord, kind)) + (k if k != 40 else 0))
+    boxes, valid = _suppress_case(kind, rng, k)
     want = _np(pallas_nms_suppress(jnp.asarray(boxes), jnp.asarray(valid),
                                    0.5, interpret=True))
     got = nms_suppress_plain(T(boxes)[None], T(valid)[None], 0.5)[0]
@@ -128,6 +153,11 @@ def test_nms_suppress_plain_equals_pallas_kernel(kind):
         nms_suppress(T(boxes)[None], T(valid)[None], 0.5)[0].numpy(), want)
     if kind == "exact_threshold":
         assert got[1::2].sum() > 0   # IoU == thresh does not suppress
+    if kind.startswith("chain_across_words"):
+        a, b, c = _chain_slots(k)
+        alive = kind == "chain_across_words"
+        assert [bool(want[a]), bool(want[b]), bool(want[c])] == [
+            alive, not alive, alive]
 
 
 def _nms_case(kind, rng):
