@@ -26,12 +26,31 @@ Phases (any failure exits non-zero, and no result line is printed):
               sizes at batch 16; every kernel's launch count is zeroed just
               before and must have grown just after;
   5. e2e      the pipeline at bench.py's configuration (batch 64, 480 px,
-              bf16, max_people 20) timed with CUDA events.
+              bf16, max_people 20) timed with CUDA events;
+  6a. eval check  the multi-scale COCO evaluator on the card against the
+              same evaluator on the CPU (plain twins) on 2 small images: the
+              CPU run is fed the card's forward outputs for the same pyramid
+              batches (which must be equal), and the folded peaks, boxes,
+              person rows and OKS stats must agree; the peak threshold
+              overfills a joint's slots, so images are dispatched again
+              from the worker thread at the escalated capacity; NMS
+              launched once per image dispatch;
+  6b. coco_eval  Evaluator.coco_eval at the reference's protocol (480 px, 5
+              scales + flip, max_people 64, 32 peaks per joint, escalation
+              at 128/256) on the serving model over 16 images at COCO sizes
+              with a synthetic GT: a warm-up pass, whose NMS inputs are
+              held against the plain twin bit for bit, then a timed pass
+              with the split by stage (CUDA events) and its launch counts,
+              then the image loop alone, pipelined and serial over the same
+              images, timed and profiled.
 
 The weights are random, drawn from a seed; the detection output convs are
 rescaled so that scores and boxes vary between anchors, and the thresholds
-are lowered so that boxes and peaks exist.  The last two lines of standard
-output are the kernels' JSON line and the result line.
+are lowered so that boxes and peaks exist (the eval's peak threshold is set
+from the images' own folded heatmaps; in 6a the heatmap output conv is
+also rescaled per joint, so that every joint has peaks).  The images are made in memory: the
+evaluator takes them through its ``load_image`` argument.  The last two
+lines of standard output are the kernels' JSON line and the result line.
 """
 
 from __future__ import annotations
@@ -183,7 +202,8 @@ def nms_candidates(pipe, images: torch.Tensor):
     return top_boxes.float().contiguous(), valid.contiguous()
 
 
-def check_nms_kernel(boxes, valid, thresh: float, label: str) -> tuple:
+def check_nms_kernel(boxes, valid, thresh: float, label: str,
+                     quiet: bool = False) -> tuple:
     from multiposenet_tpu_torch.ops.cuda_nms import nms_suppress_cuda
     from multiposenet_tpu_torch.ops.nms import nms_suppress_plain
 
@@ -191,9 +211,10 @@ def check_nms_kernel(boxes, valid, thresh: float, label: str) -> tuple:
     want = nms_suppress_plain(boxes, valid, thresh)
     torch.cuda.synchronize()
     mismatch = int((got != want).sum())
-    log(f"kernel nms_suppress [{label}]: B={boxes.shape[0]} K={boxes.shape[1]} "
-        f"kept={int(got.sum())} suppressed={int((valid & ~got).sum())} "
-        f"mismatches={mismatch}")
+    if not quiet:
+        log(f"kernel nms_suppress [{label}]: B={boxes.shape[0]} "
+            f"K={boxes.shape[1]} kept={int(got.sum())} "
+            f"suppressed={int((valid & ~got).sum())} mismatches={mismatch}")
     if mismatch:
         raise AssertionError(f"nms_suppress kernel disagrees with its plain "
                              f"twin on {mismatch} slots ({label})")
@@ -500,6 +521,507 @@ def check_against_cpu() -> None:
         f"({n} people, {int(out_c.detections.keep.sum())} boxes kept)")
 
 
+# ---------------------------------------------------------------- phase 6
+
+# (h, w) of COCO val2017-typical images
+EVAL_SIZES = ((480, 640), (640, 480), (427, 640), (612, 612))
+EVAL_SCALES = (0.5, 1.0, 1.5, 2.0, 2.5)   # the reference's protocol
+EVAL_IMAGES = 16
+
+
+def synthetic_gt(shapes, rng: np.random.RandomState) -> dict:
+    """A COCO keypoint GT over images of the given (h, w): one or two people
+    per image at random places, every keypoint visible."""
+    images, anns = [], []
+    for i, (h, w) in enumerate(shapes):
+        images.append({"id": i + 1, "height": h, "width": w,
+                       "file_name": f"{i + 1}.png"})
+        for _ in range(1 + i % 2):
+            bw, bh = rng.uniform(0.2, 0.5) * w, rng.uniform(0.3, 0.7) * h
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            kps = np.stack([x0 + rng.uniform(0, bw, 17), y0 + rng.uniform(0, bh, 17),
+                            np.full(17, 2.0)], axis=1)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": 1, "iscrowd": 0, "num_keypoints": 17,
+                         "area": float(bw * bh),
+                         "bbox": [float(x0), float(y0), float(bw), float(bh)],
+                         "keypoints": kps.reshape(-1).tolist()})
+    return {"images": images, "annotations": anns,
+            "categories": [{"id": 1, "name": "person"}]}
+
+
+def eval_config(base, inp: int, scales, **sections):
+    """``base`` with the multi-scale eval settings and the given fields of
+    its ``detection`` / ``peaks`` / ``prn`` sections replaced."""
+    from multiposenet_tpu_torch.config import EvalConfig
+
+    cfg = dataclasses.replace(base, eval=EvalConfig(
+        inp_size=inp, scale_search=tuple(scales), flip=True))
+    for name, fields in sections.items():
+        cfg = dataclasses.replace(cfg, **{name: dataclasses.replace(
+            getattr(cfg, name), **fields)})
+    return cfg
+
+
+def folded_peak_scores(model, cfg, images, n: int, device) -> np.ndarray:
+    """(images, 18, n): the scores of each joint's ``n`` best local maxima
+    in each image's folded heatmap, descending."""
+    from multiposenet_tpu_torch.engine.evaluator import Evaluator
+    from multiposenet_tpu_torch.eval.multiscale import get_multipliers
+
+    probe = Evaluator(eval_config(cfg, cfg.eval.inp_size, cfg.eval.scale_search,
+                                  peaks=dict(thre1=0.0, max_peaks_per_joint=n,
+                                             escalate_max_peaks=0)),
+                      model=model, device=device)
+    best = []
+    for img in images:
+        mult = get_multipliers(img.shape[0], cfg.eval.inp_size,
+                               cfg.eval.scale_search)
+        _, (_, scores, _) = probe._get_outputs_device(mult, img, with_flip=True)
+        best.append(-np.sort(-scores, axis=1))
+    return np.stack(best)
+
+
+@torch.no_grad()
+def spread_keypoint_heads(model, cfg, images, rank: int, device) -> None:
+    """Rescale the heatmap output conv (``convfin``, 1x1, no bias) per joint
+    so that every joint's ``rank``-th best folded peak (the most of it over
+    ``images``) is as high as the highest joint's.  A random model's joints
+    differ by an order of magnitude, so one global peak threshold would
+    leave most of them without peaks.  A joint and its mirror twin get one
+    factor: the flip fold averages the two."""
+    from multiposenet_tpu_torch.eval.multiscale import SWAP_HEAT_18
+
+    top = folded_peak_scores(model, cfg, images, rank, device)[:, :, -1].max(0)
+    top = np.maximum(top, top[list(SWAP_HEAT_18)])
+    if not (top > 0).all():
+        raise AssertionError(f"a joint has no positive peak: {top}")
+    factor = torch.from_numpy((top.max() / top).astype(np.float32))
+    model.convfin.weight.mul_(factor.to(model.convfin.weight.device)[:, None, None, None])
+
+
+def calibrate_thre1(model, cfg, images, k: int, device) -> float:
+    """A peak threshold under which each of ``images`` has fewer than ``k``
+    peaks of every joint, and the most crowded joint of one image has
+    ``k - 1``, taken from the folded heatmaps' peaks.  A random model's
+    heatmaps are tiny and bumpy, so the reference's 0.1 finds nothing and 0
+    finds every local maximum, which would escalate every image."""
+    best = folded_peak_scores(model, cfg, images, 4 * k, device)
+    best = best.reshape(-1, best.shape[2])
+    j = int(best[:, k - 1].argmax())
+    # midway between two peaks of the most crowded joint, so that no peak
+    # sits at the threshold, where rounding would decide it
+    return float((best[j, k - 2] + best[j, k - 1]) / 2)
+
+
+def run_coco_eval(ev, gt: dict, images, **kw):
+    """``ev.coco_eval`` over in-memory images with ``gt`` written to a
+    temporary JSON file.  Returns (metrics, result rows)."""
+    import os
+    import tempfile
+
+    by_name = {rec["file_name"]: img for rec, img in zip(gt["images"], images)}
+    with tempfile.TemporaryDirectory() as d:
+        ann_file = os.path.join(d, "gt.json")
+        result_file = os.path.join(d, "results.json")
+        with open(ann_file, "w") as f:
+            json.dump(gt, f)
+        metrics = ev.coco_eval(ann_file=ann_file, result_file=result_file,
+                               load_image=by_name.__getitem__, **kw)
+        with open(result_file) as f:
+            return metrics, json.load(f)
+
+
+def batch_key(images: torch.Tensor, with_detections: bool) -> tuple:
+    import hashlib
+
+    a = images.cpu().numpy()
+    return a.shape, hashlib.sha1(a.tobytes()).hexdigest(), with_detections
+
+
+def hook_forwards(ev, store: dict, replay: bool) -> None:
+    """Record every forward of ``ev`` in ``store`` under its input batch, or
+    (``replay``) answer each forward from ``store`` instead: the replaying
+    evaluator then gets the recording one's heads exactly, and a pyramid
+    batch the recording one never built fails the lookup."""
+    make = ev.pipeline
+
+    def pipeline(hw, with_peaks=True, with_detections=True):
+        pipe = make(hw, with_peaks, with_detections)
+        if getattr(pipe, "hooked", False):
+            return pipe
+        run = pipe.forward
+
+        def forward(images):
+            key = batch_key(images, with_detections)
+            if replay:
+                if key not in store:
+                    raise AssertionError("a CPU pyramid batch differs from "
+                                         "every CUDA one")
+                return store[key]
+            heads = run(images)
+            store[key] = tuple(None if t is None else t.cpu() for t in heads)
+            return heads
+        pipe.forward, pipe.hooked = forward, True
+        return pipe
+    ev.pipeline = pipeline
+
+
+def record_fetches(ev) -> list:
+    """Keep every (boxes, peaks) that ``ev`` fetches, in fetch order."""
+    fetched = []
+    fetch = ev._fetch_image_device
+
+    def record(handle):
+        fetched.append(fetch(handle))
+        return fetched[-1]
+    ev._fetch_image_device = record
+    return fetched
+
+
+def check_eval_against_cpu(device: str = "cuda") -> dict:
+    """Phase 6a: the evaluator on the card against the same evaluator on
+    the CPU (plain twins), resnet50 float32, 2 noise images of two sizes,
+    inp_size 128, 3 scales, flip.  The CPU run is fed the CUDA run's
+    forward outputs for the same pyramid batches; everything after the
+    forward runs on both devices.  The joints' heatmaps are evened out and
+    the peak threshold set so that the most crowded joint has 16 peaks:
+    more than the 8 slots of the base tier, so that image is dispatched
+    again from the worker thread at 32, and grouped at the escalated
+    (32 peaks, 32 people) tier."""
+    from multiposenet_tpu_torch.config import Config, ModelConfig
+    from multiposenet_tpu_torch.engine.evaluator import Evaluator
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    rng = np.random.RandomState(SEED + 2)
+    cfg = eval_config(Config(model=ModelConfig(backbone="resnet50")), 128,
+                      (0.5, 1.0, 1.5),
+                      detection=dict(max_detections=32, test_score_thresh=0.05),
+                      peaks=dict(max_peaks_per_joint=8, escalate_max_peaks=32),
+                      prn=dict(max_people=8, escalate_max_people=32))
+    gpu_model = build_posenet(cfg.model, torch.device(device), seed=SEED + 2,
+                              head_output_std=0.01)
+    spread_detection_heads(gpu_model, torch.from_numpy(rng.randint(
+        0, 256, (2, 128, 128, 3), dtype=np.uint8)).to(device))
+    shapes = ((160, 224), (237, 189))
+    images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for h, w in shapes]
+    gt = synthetic_gt(shapes, rng)
+    spread_keypoint_heads(gpu_model, cfg, images, 16, device)
+    cpu_model = build_posenet(cfg.model, torch.device("cpu"),
+                              {k: v.cpu() for k, v in gpu_model.state_dict().items()})
+    thre1 = calibrate_thre1(gpu_model, cfg, images, 17, device)
+    cfg = dataclasses.replace(cfg, peaks=dataclasses.replace(cfg.peaks, thre1=thre1))
+
+    heads = {}
+    gpu = Evaluator(cfg, model=gpu_model, device=device)
+    hook_forwards(gpu, heads, replay=False)
+    gpu_fetched = record_fetches(gpu)
+    cuda_nms.launches = 0
+    gpu_metrics, gpu_rows = run_coco_eval(gpu, gt, images)
+    launches = cuda_nms.launches
+    cpu = Evaluator(cfg, model=cpu_model, device="cpu")
+    hook_forwards(cpu, heads, replay=True)
+    cpu_fetched = record_fetches(cpu)
+    cpu_metrics, cpu_rows = run_coco_eval(cpu, gt, images)
+
+    if len(gpu_fetched) != len(cpu_fetched):
+        raise AssertionError("the CUDA and CPU evaluators fetched different "
+                             "numbers of images")
+    score_err = box_err = score_max = 0.0
+    for (gb, (gc, gs, gv)), (cb, (cc, cs, cv)) in zip(gpu_fetched, cpu_fetched):
+        if not (np.array_equal(gc, cc) and np.array_equal(gv, cv)):
+            raise AssertionError("CUDA and CPU folded peaks differ")
+        score_err = max(score_err, float(np.abs(gs - cs).max()))
+        score_max = max(score_max, float(np.abs(cs[cv]).max(initial=0.0)))
+        if len(gb) != len(cb):
+            raise AssertionError("CUDA and CPU scale-1.0 boxes differ in number")
+        if gb:
+            box_err = max(box_err, float(np.abs(np.subtract(gb, cb)).max()))
+    # the fold's matmuls sum in another order on the card: float32 rounding
+    if not score_max > 0 or score_err > 1e-5 * score_max:
+        raise AssertionError(f"CUDA and CPU peak scores differ by {score_err} "
+                             f"(largest {score_max})")
+    if len(gpu_rows) != len(cpu_rows) or not gpu_rows:
+        raise AssertionError(f"{len(gpu_rows)} CUDA result rows against "
+                             f"{len(cpu_rows)} CPU ones")
+    n_peak_kps = 0
+    for g, c in zip(gpu_rows, cpu_rows):
+        gk = np.reshape(g["keypoints"], (17, 3))
+        ck = np.reshape(c["keypoints"], (17, 3))
+        on_peak = ck[:, 2] > 0
+        # a joint on a peak is exact; a joint without one (v=0) falls back
+        # to the PRN's argmax inside the box, so it moves with the box
+        if (g["image_id"] != c["image_id"] or g["score"] != c["score"]
+                or not np.array_equal(gk[:, 2], ck[:, 2])
+                or not np.array_equal(gk[on_peak], ck[on_peak])):
+            raise AssertionError(f"CUDA and CPU person rows differ: {g} {c}")
+        n_peak_kps += int(on_peak.sum())
+        box_err = max(box_err, float(np.abs(np.subtract(g["bbox"], c["bbox"])).max()),
+                      float(np.abs(gk[~on_peak] - ck[~on_peak]).max(initial=0.0)))
+    if box_err > 1e-4:
+        raise AssertionError(f"CUDA and CPU boxes differ by {box_err}")
+    if gpu_metrics.keys() != cpu_metrics.keys() or any(
+            abs(gpu_metrics[k] - cpu_metrics[k]) > 1e-6 for k in gpu_metrics):
+        raise AssertionError(f"OKS stats differ: {gpu_metrics} {cpu_metrics}")
+    if not gpu.escalated or gpu.escalated != cpu.escalated:
+        raise AssertionError(f"escalated images: CUDA {gpu.escalated}, CPU "
+                             f"{cpu.escalated}; expected the same, not none")
+    n_kps = 17 * len(gpu_rows)
+    if n_peak_kps < n_kps // 10:
+        raise AssertionError(f"only {n_peak_kps} of {n_kps} keypoints lie on "
+                             "peaks: the comparison would hold the "
+                             "assignment to almost nothing")
+    dispatches = len(images) + len(gpu.escalated)
+    if launches != dispatches:
+        raise AssertionError(f"K1 launched {launches} times for {dispatches} "
+                             "image dispatches")
+    log(f"eval check: CUDA Evaluator == CPU Evaluator on 2 noise images "
+        f"{shapes}, resnet50 f32, inp 128, scales (0.5, 1.0, 1.5), flip, "
+        f"thre1 {thre1:.3e}: {len(gpu_rows)} person rows equal ({n_peak_kps} "
+        f"of {n_kps} keypoints on peaks, exact; boxes and the keypoints that "
+        f"fall back into them max |diff| {box_err:.2e}), folded peak coords "
+        f"and valid equal in {len(gpu_fetched)} fetches (scores max |diff| "
+        f"{score_err:.2e} of {score_max:.2e}), OKS stats equal; images "
+        f"{gpu.escalated} escalated to 32 peaks on both; K1 launched "
+        f"{launches} times for {dispatches} image dispatches")
+    return {"launches": launches}
+
+
+def stage_split(times, n_images: int) -> dict:
+    """Per image: {stage: (device ms between its events, host ms of its
+    enqueue)} for the pyramid, each scale's forward, the fold + peaks and
+    the PRN + assignment, and {"host finish": (None, host ms)}."""
+    dev = times.device_ms()
+    names = [("pyramid", "pyramid")]
+    names += [(f"forward x{sc}", f"forward {i}") for i, sc in enumerate(EVAL_SCALES)]
+    names += [("fold + peaks", "fold_peaks"), ("PRN + assign", "prn_assign")]
+    split = {}
+    for label, name in names:
+        ms = dev.get(name)
+        split[label] = (None if ms is None else ms / n_images,
+                        times.host_s.get(f"enqueue {name}", 0.0) * 1e3 / n_images)
+    split["host finish"] = (None, times.host_s.get("finish", 0.0) * 1e3 / n_images)
+    return split
+
+
+def format_split(split: dict) -> str:
+    return ", ".join(
+        f"{k} {'-' if d is None else f'{d:.3f}'} / {h:.3f}"
+        for k, (d, h) in split.items())
+
+
+def device_busy(fn, top: int = 8) -> dict:
+    """Wall ms of ``fn()`` under torch.profiler (CUDA activity only), the
+    sum of its kernels' device ms, their ratio (the device's busy share;
+    kernels that overlap on two streams count twice) and the ``top``
+    kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()]
+    kernel_ms = sum(ms for _, ms in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "busy_share": kernel_ms / wall_ms,
+            "top": [(name[:60], ms) for name, ms in rows[:top]]}
+
+
+def record_nms_inputs():
+    """Make each call of K1's wrapper also keep a copy of its inputs.
+    Returns the list of (boxes, valid, thresh) copies and a function that
+    puts the wrapper back."""
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    calls = []
+    launch = cuda_nms.nms_suppress_cuda
+
+    def record(boxes, valid, thresh):
+        calls.append((boxes.clone(), valid.clone(), thresh))
+        return launch(boxes, valid, thresh)
+    cuda_nms.nms_suppress_cuda = record
+    return calls, lambda: setattr(cuda_nms, "nms_suppress_cuda", launch)
+
+
+def check_eval_nms_inputs(calls, k: int) -> int:
+    """K1 against its plain twin, bit for bit, on every candidate set that
+    the eval handed it (one image and its mirror at scale 1.0 each)."""
+    if not calls:
+        raise AssertionError("the eval never called the NMS kernel")
+    errs, kept, suppressed = [], 0, 0
+    for boxes, valid, thresh in calls:
+        if tuple(valid.shape) != (2, k):
+            raise AssertionError(f"eval NMS inputs of shape {tuple(valid.shape)}, "
+                                 f"expected (2, {k})")
+        got, err = check_nms_kernel(boxes, valid, thresh, "eval candidates",
+                                    quiet=True)
+        errs.append(err)
+        kept += int(got.sum())
+        suppressed += int((valid & ~got).sum())
+    if not suppressed:
+        raise AssertionError("no eval candidate was suppressed: the check "
+                             "would not test the suppression")
+    log(f"kernel nms_suppress [eval candidates]: {len(calls)} calls at B=2 "
+        f"K={k} recorded on the warm-up pass, kept={kept} "
+        f"suppressed={suppressed} mismatches=0")
+    return max(errs)
+
+
+def time_eval_loop(ev):
+    """Wrap ``ev._coco_eval_loop`` (the image loop of coco_eval, without
+    reading the GT or scoring) so that each call appends its wall seconds,
+    to the device's end, to the returned list."""
+    loop = ev._coco_eval_loop
+    seconds = []
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = loop(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    ev._coco_eval_loop = timed
+    return seconds
+
+
+def full_width_eval(model, base_cfg, card: str, device: str = "cuda") -> dict:
+    """Phase 6b: coco_eval at the reference's protocol on the serving model
+    (ResNet-101 FPN, bf16, channels-last): inp_size 480, 5 scales, flip,
+    max_people 64, 32 peaks per joint, escalation at 128 / 256; 16 noise
+    images at COCO sizes with a synthetic GT.  One warm-up pass (cuDNN
+    plans of every shape), which also records K1's inputs for a check
+    against the plain twin; then the timed pass through coco_eval, with the
+    split by stage and its image loop timed apart from the GT and the
+    scoring; then the image loop alone, pipelined and serial (no worker
+    thread) over the same images, in the order serial, serial, pipelined,
+    and the two under torch.profiler for the device's busy share."""
+    from multiposenet_tpu_torch.data.coco_json import COCOIndex
+    from multiposenet_tpu_torch.engine.evaluator import Evaluator, StageTimes
+    from multiposenet_tpu_torch.eval.multiscale import get_multipliers
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    rng = np.random.RandomState(SEED + 3)
+    n_images = EVAL_IMAGES
+    shapes = [EVAL_SIZES[i % len(EVAL_SIZES)] for i in range(n_images)]
+    images = [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for h, w in shapes]
+    gt = synthetic_gt(shapes, rng)
+    cfg = eval_config(base_cfg, INP, EVAL_SCALES,
+                      peaks=dict(max_peaks_per_joint=32, escalate_max_peaks=128),
+                      prn=dict(max_people=64, escalate_max_people=256))
+    thre1 = calibrate_thre1(model, cfg, images, 16, device)
+    cfg = dataclasses.replace(cfg, peaks=dataclasses.replace(cfg.peaks, thre1=thre1))
+    ev = Evaluator(cfg, model=model, device=device)
+    loop_s = time_eval_loop(ev)
+
+    calls, restore = record_nms_inputs()
+    t0 = time.perf_counter()
+    try:
+        run_coco_eval(ev, gt, images)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    nms_err = check_eval_nms_inputs(calls, cfg.detection.max_detections)
+    del calls
+
+    ev.stage_times = StageTimes()
+    cuda_nms.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, rows = run_coco_eval(ev, gt, images)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = cuda_nms.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = stage_split(ev.stage_times, n_images)
+    pipelined_s = loop_s[-1]
+
+    check_people([[r for r in rows if r["image_id"] == i + 1]
+                  for i in range(n_images)], n_images)
+    stats = [metrics.get(k) for k in sorted(metrics)]
+    if len(stats) != 10 or not np.isfinite(stats).all():
+        raise AssertionError(f"OKS stats not 10 finite numbers: {metrics}")
+    dispatches = n_images + len(ev.escalated)
+    if launches != dispatches:
+        raise AssertionError(f"K1 launched {launches} times for {dispatches} "
+                             "image dispatches")
+    log(f"coco_eval: {n_images} images {sorted(set(shapes))} at inp {INP}, "
+        f"scales {EVAL_SCALES}, flip, {cfg.model.backbone} "
+        f"{str(cfg.model.compute_dtype).split('.')[-1]}, max_people 64, peaks "
+        f"32 (escalation 128/256), thre1 {thre1:.3e}: "
+        f"{timed_s / n_images * 1e3:.2f} ms/image wall ({timed_s:.3f} s; "
+        f"warm-up pass {warm_s:.1f} s), of which the image loop "
+        f"{pipelined_s / n_images * 1e3:.2f} ms/image and the GT, scoring and "
+        f"result JSON {(timed_s - pipelined_s) / n_images * 1e3:.2f} ms/image; "
+        f"per image, ms on the device between "
+        f"each stage's events / ms of host enqueue: {format_split(split)}; "
+        f"K1 launches {launches} for {dispatches} image dispatches "
+        f"({len(ev.escalated)} escalated); {len(rows)} person rows; peak "
+        f"memory {peak_gib:.2f} GiB; OKS "
+        + " ".join(f"{k} {metrics[k]:.4f}" for k in metrics) + f" [{card}]")
+
+    # the image loop alone over the same images, as coco_eval runs it
+    # (pipelined: a worker thread fetches and finishes image n while image
+    # n + 1 is dispatched) and one image at a time (serial)
+    index = COCOIndex(dataset=gt)
+    img_ids = index.get_img_ids(cat_ids=[1])
+    by_name = {rec["file_name"]: img for rec, img in zip(gt["images"], images)}
+
+    def pipelined():
+        ev._coco_eval_loop(index, img_ids, by_name.__getitem__, 64)
+
+    def serial():
+        with torch.no_grad():
+            for img_id in img_ids:
+                name = index.load_imgs(img_id)[0]["file_name"]
+                img = by_name[name]
+                mult = get_multipliers(img.shape[0], INP, EVAL_SCALES)
+                ev._fetch_finish_escalating(
+                    ev._dispatch_image_device(mult, img, with_flip=True), img,
+                    mult, 64, name, img_id)
+        torch.cuda.synchronize()
+
+    def wall_s(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    # with the stage events on, as in the timed pass: its split beside this
+    ev.stage_times = StageTimes()
+    serial_on_s = wall_s(serial)
+    serial_split = stage_split(ev.stage_times, n_images)
+    ev.stage_times = None
+    serial_off_s = wall_s(serial)
+    pipelined()
+    pipelined_off_s = loop_s[-1]
+    ms = lambda s: f"{s / n_images * 1e3:.2f}"  # noqa: E731
+    log(f"coco_eval image loop, ms/image wall, pipelined / serial over the "
+        f"same {n_images} images: {ms(pipelined_s)} / {ms(serial_on_s)} with "
+        f"the stage events on (pipelined from the timed pass), "
+        f"{ms(pipelined_off_s)} / {ms(serial_off_s)} with them off; serial, "
+        f"per image, device ms / host enqueue ms: {format_split(serial_split)} "
+        f"[{card}]")
+    busy = {"pipelined": device_busy(pipelined), "serial": device_busy(serial)}
+    for name, b in busy.items():
+        log(f"coco_eval image loop, {name}, profiled (CUDA activity only): "
+            f"{b['wall_ms'] / n_images:.2f} ms/image wall, kernels "
+            f"{b['kernel_ms'] / n_images:.2f} ms/image: device busy share "
+            f"{b['busy_share']:.3f}; top kernels by device ms/image: "
+            + ", ".join(f"{k} {v / n_images:.3f}" for k, v in b["top"])
+            + f" [{card}]")
+
+    return {"launches": launches, "max_abs_err": nms_err,
+            "ms_per_image": timed_s / n_images * 1e3,
+            "loop_ms_per_image": pipelined_s / n_images * 1e3,
+            "split_ms": split, "serial_ms_per_image": serial_on_s / n_images * 1e3,
+            "serial_split_ms": serial_split, "escalated": len(ev.escalated)}
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -514,6 +1036,7 @@ def main() -> int:
     from multiposenet_tpu_torch.ops import cuda_nms
     from multiposenet_tpu_torch.ops.nms import nms_suppress_plain
 
+    t_start = time.perf_counter()
     torch.backends.cudnn.benchmark = True
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -586,9 +1109,18 @@ def main() -> int:
         f"{bound_ms:.6f} ms ({bound_by}), bound share {bound_share:.5f} at "
         f"B={BENCH_BATCH} K={K} [{card}]")
     split = time_nms_probes(probe, rb, rv, thresh)
+    # the eval path's shape: one image and its mirror, K candidates
+    eb, ev_ = (t.cuda() for t in fuzz_nms_inputs(2, K, gen))
+    max_err = max(max_err, check_nms_kernel(eb, ev_, thresh, "eval shape")[1])
+    eval_ms = graph_time_ms(lambda: cuda_nms.nms_suppress_cuda(eb, ev_, thresh))
+    eval_bound_ms, eval_bound_by = nms_bound_ms(2, K)
+    log(f"kernel nms_suppress at the eval's B=2 K={K}: {eval_ms:.5f} ms per "
+        f"launch on the device (CUDA graph), bound {eval_bound_ms:.7f} ms "
+        f"({eval_bound_by}) [{card}]")
 
     # ---- 3. small reference check -------------------------------------------
     check_against_cpu()
+    eval_check = check_eval_against_cpu()                         # phase 6a
 
     # ---- 4. serving: the main path ------------------------------------------
     predictor = BatchPredictor(cfg, model=model, batch_size=SERVE_BATCH,
@@ -633,14 +1165,20 @@ def main() -> int:
         f"{host_s * 1e3:.2f} ms/batch = {BENCH_BATCH / host_s:.1f} images/s; "
         f"peak memory {peak_gib:.2f} GiB [{card}]")
 
+    # ---- 6b. multi-scale COCO eval at full width -----------------------------
+    full_eval = full_width_eval(model, cfg, card)
+
     kernels = [{
         "name": "nms_suppress",
         "route": "cuda",
         "source": "multiposenet_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "multiposenet_tpu/ops/pallas_nms.py:33",
         "tpu_kernel": "multiposenet_tpu/ops/pallas_nms.py::_nms_suppress_kernel",
-        "launches": launches["nms_suppress"],
-        "max_abs_err": max_err,
+        "launches": launches["nms_suppress"] + full_eval["launches"],
+        "launches_by_path": {"serving": launches["nms_suppress"],
+                             "coco_eval": full_eval["launches"],
+                             "coco_eval_check": eval_check["launches"]},
+        "max_abs_err": max(max_err, full_eval["max_abs_err"]),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "call_ms": call_ms,
@@ -651,9 +1189,12 @@ def main() -> int:
         "bound_by": bound_by,
         "bound_share": bound_share,
         "probe_ms": split,
+        "eval_shape_ms": eval_ms,
+        "eval_shape_bound_ms": eval_bound_ms,
         "library_ms": None,
         "build_s": build_s.get(cuda_nms.SOURCE),
     }]
+    log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,14 @@
-"""Configuration for the serving path — the JAX package's dataclass tree
+"""Configuration of the port — the JAX package's dataclass tree
 (multiposenet_tpu/config.py) cut to the fields this port reads, with
 ``compute_dtype`` as a torch dtype.
 
-The NMS suppression always runs as the CUDA kernel on a GPU tensor
-(ops/cuda_nms.py), so there is no NMS backend switch here.
+The port has one path where the JAX package has switches: the NMS
+suppression always runs as the CUDA kernel on a GPU tensor (ops/cuda_nms.py),
+and the evaluator always builds the image pyramid, resizes and folds the
+heatmaps, finds peaks and groups people on the device, with detections from
+the scale-1.0 forward only.  So there is no ``use_pallas_nms``,
+``device_resize``, ``device_peaks``, ``device_image_resize``, ``group_size``,
+``detect_scale1_only`` or ``device_grouping`` here.
 """
 
 from __future__ import annotations
@@ -73,6 +78,11 @@ class PeakConfig:
 
     thre1: float = 0.1              # peak score threshold
     max_peaks_per_joint: int = 32   # fixed capacity
+    # crowd escalation: when a joint type fills every peak slot of an image
+    # (the top-k may have truncated), the evaluator re-dispatches the image
+    # at this capacity (reference tester.py:338-350 keeps unbounded peak
+    # lists).  0 disables it
+    escalate_max_peaks: int = 128
     win_size: int = 2               # 5x5 refinement patch
     refine: bool = True
 
@@ -83,17 +93,30 @@ class PRNConfig:
 
     in_thres: float = 0.21          # bbox expansion for the peak-inside test
     max_people: int = 64            # fixed PRN batch capacity per image
+    # crowd escalation: an image with more boxes than max_people (or more
+    # peaks of one joint type than max_peaks_per_joint) is grouped at the
+    # escalated (peaks, people) tier instead of truncated (reference
+    # tester.py:400-406 runs the PRN per person, unbounded).  0 disables it
+    escalate_max_people: int = 256
     score_window: int = 15          # NxN window around a peak for PRN scoring
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    coco_root: str = "/data/COCO/"
     feat_stride: int = 4            # heatmap stride: peaks scale by it
 
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    inp_size: int = 480             # BatchPredictor's square model input
+    """Tester parameters (reference tester.py:84-104)."""
+
+    inp_size: int = 480             # model input: square (serving) or scale-1.0 height
+    scale_search: Tuple[float, ...] = (0.5, 1.0, 1.5, 2.0, 2.5)
+    flip: bool = True               # the mirrored image rides in each scale's batch
+    testdata_dir: str = "./demo/test_images/"
+    testresult_dir: str = "./demo/output/"
+    write_json: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,9 +76,11 @@ def preprocess_on_device(img_rgb_u8: torch.Tensor) -> torch.Tensor:
 
 
 class PipelineOutput(NamedTuple):
-    heatmaps: torch.Tensor          # (B, H/4, W/4, 18)
-    detections: NMSResult           # boxes (B,K,4) scores (B,K) input pixels
-    peaks: PeakSet                  # (B, J, P, ...) coords in input pixels
+    heatmaps: torch.Tensor                # (B, H/4, W/4, 18)
+    detections: Optional[NMSResult]       # boxes (B,K,4) scores (B,K) input
+    #                                       pixels; None without detections
+    peaks: Optional[PeakSet]              # (B, J, P, ...) coords in input
+    #                                       pixels; None without peaks
 
 
 class PoseAssignments(NamedTuple):
@@ -98,43 +100,63 @@ class PoseAssignments(NamedTuple):
 
 
 class FullPipeline:
-    """image -> (heatmaps, detections, peaks) for one static (H, W)."""
+    """image -> (heatmaps, detections, peaks) for one static (H, W).
+
+    ``with_detections=False`` runs ``PoseNet.keypoint_forward`` alone: no
+    anchors, no detection pyramid or RetinaNet heads, no NMS, and
+    ``detections`` is None (the multi-scale eval reads boxes from its
+    scale-1.0 forward only).  ``with_peaks=False`` skips the peak finder
+    and ``peaks`` is None.
+    """
 
     def __init__(self, model: PoseNet, cfg: Config, image_hw: Tuple[int, int],
-                 preprocess: bool = True, device=None):
+                 preprocess: bool = True, device=None, with_peaks: bool = True,
+                 with_detections: bool = True):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.image_hw = (int(image_hw[0]), int(image_hw[1]))
         self.preprocess = preprocess
-        self.anchors = torch.from_numpy(
-            np.array(anchors_for_shape(self.image_hw, cfg.anchors))).to(self.device)
+        self.with_peaks = with_peaks
+        self.with_detections = with_detections
+        self.anchors = (torch.from_numpy(np.array(
+            anchors_for_shape(self.image_hw, cfg.anchors))).to(self.device)
+            if with_detections else None)
 
     @torch.no_grad()
     def forward(self, images: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                           Optional[torch.Tensor]]:
         """(B,H,W,3) uint8 RGB (or float when preprocess=False) ->
-        heatmaps (B,H/4,W/4,18), cls (B,A,1), reg (B,A,4)."""
+        heatmaps (B,H/4,W/4,18), cls (B,A,1), reg (B,A,4); cls and reg are
+        None without detections."""
         images = images.to(self.device, non_blocking=True)
         x = preprocess_on_device(images) if self.preprocess else images
         with full_fp32_matmul():
-            return self.model.full_forward(x)
+            if self.with_detections:
+                return self.model.full_forward(x)
+            return self.model.keypoint_forward(x)[0], None, None
 
     @torch.no_grad()
-    def detect_and_peaks(self, heatmaps: torch.Tensor, cls: torch.Tensor,
-                         reg: torch.Tensor) -> PipelineOutput:
+    def detect_and_peaks(self, heatmaps: torch.Tensor,
+                         cls: Optional[torch.Tensor],
+                         reg: Optional[torch.Tensor]) -> PipelineOutput:
         det, pk = self.cfg.detection, self.cfg.peaks
         h, w = self.image_hw
-        boxes = clip_boxes(decode_boxes(self.anchors[None], reg.float()), h, w)
-        scores = cls.amax(dim=2)                      # (B, A) person prob
+        dets = peaks = None
         with full_fp32_matmul():
-            dets = batched_topk_nms(boxes, scores, iou_thresh=det.nms_thresh,
-                                    max_out=det.max_detections,
-                                    score_thresh=det.score_thresh)
-            peaks = find_peaks_refined_batched(
-                heatmaps, thre1=pk.thre1, max_peaks=pk.max_peaks_per_joint,
-                upsamp_factor=self.cfg.data.feat_stride, win_size=pk.win_size,
-                refine=pk.refine)
+            if self.with_detections:
+                boxes = clip_boxes(decode_boxes(self.anchors[None], reg.float()),
+                                   h, w)
+                scores = cls.amax(dim=2)                  # (B, A) person prob
+                dets = batched_topk_nms(boxes, scores, iou_thresh=det.nms_thresh,
+                                        max_out=det.max_detections,
+                                        score_thresh=det.score_thresh)
+            if self.with_peaks:
+                peaks = find_peaks_refined_batched(
+                    heatmaps, thre1=pk.thre1, max_peaks=pk.max_peaks_per_joint,
+                    upsamp_factor=self.cfg.data.feat_stride,
+                    win_size=pk.win_size, refine=pk.refine)
         return PipelineOutput(heatmaps, dets, peaks)
 
     def __call__(self, images: torch.Tensor) -> PipelineOutput:
@@ -142,8 +164,11 @@ class FullPipeline:
 
 
 def make_full_pipeline(model: PoseNet, cfg: Config, image_hw: Tuple[int, int],
-                       preprocess: bool = True, device=None) -> FullPipeline:
-    return FullPipeline(model, cfg, image_hw, preprocess, device)
+                       preprocess: bool = True, device=None,
+                       with_peaks: bool = True,
+                       with_detections: bool = True) -> FullPipeline:
+    return FullPipeline(model, cfg, image_hw, preprocess, device,
+                        with_peaks=with_peaks, with_detections=with_detections)
 
 
 class E2EPosePipeline:

@@ -1,10 +1,12 @@
-"""Host formatting of grouped people — numpy twin of ``format_assignment``
-in multiposenet_tpu/eval/grouping.py (reference tester.py:195-254, 461-483).
+"""Host formatting of grouped people — numpy twin of ``format_assignment``,
+``drop_neck_reindex`` and ``to_coco_order`` in
+multiposenet_tpu/eval/grouping.py (reference tester.py:137, 163-177,
+195-254, 461-483).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -47,3 +49,24 @@ def format_assignment(
             "keypoints": k.tolist(),
         })
     return results
+
+
+# 18-joint internal -> drop neck (joint 1) -> 17-joint internal order used by
+# prn_process (reference tester.py:163-167: types > 1 shift down by one)
+def drop_neck_reindex(joint_type_18: int) -> Optional[int]:
+    if joint_type_18 == 1:
+        return None
+    return max(0, joint_type_18 - 1)
+
+
+# internal 17-joint -> COCO keypoint order (reference tester.py:137)
+COCO_ORDER = [0, 14, 13, 16, 15, 4, 1, 5, 2, 6, 3, 10, 7, 11, 8, 12, 9]
+
+
+def to_coco_order(keypoints_51: Sequence[float]) -> List[float]:
+    """Reorder a flattened 17x3 keypoint vector into COCO order
+    (reference tester.py:171-177)."""
+    out = []
+    for i in range(NUM_COCO_JOINTS):
+        out.extend(keypoints_51[COCO_ORDER[i] * 3: COCO_ORDER[i] * 3 + 3])
+    return out

@@ -121,7 +121,9 @@ class ResNetFPN(nn.Module):
         self.smooth2 = conv(ch, 3)
         self.smooth3 = conv(ch, 3)
 
-    def forward(self, x: torch.Tensor) -> FPNFeatures:
+    def forward(self, x: torch.Tensor, detection: bool = True) -> FPNFeatures:
+        """NCHW image -> both pyramids; ``detection=False`` skips the
+        detection pyramid (``FPNFeatures.detection`` is empty)."""
         c1 = F.relu(self.bn1(self.conv1(x)))
         c1 = F.max_pool2d(c1, 3, stride=2, padding=1)
         c2 = self.layer1(c1)   # stride 4
@@ -130,14 +132,15 @@ class ResNetFPN(nn.Module):
         c5 = self.layer4(c4)   # stride 32
 
         hw = lambda t: t.shape[2:4]  # noqa: E731
-        p6 = self.conv6(c5)
-        p7 = self.conv7(F.relu(p6))
-        p5 = self.latlayer1(c5)
-        p4 = upsample_nearest(p5, hw(c4)) + self.latlayer2(c4)
-        p3 = upsample_nearest(p4, hw(c3)) + self.latlayer3(c3)
-        p5 = self.toplayer0(p5)
-        p4 = self.toplayer1(p4)
-        p3 = self.toplayer2(p3)
+        det: Tuple[torch.Tensor, ...] = ()
+        if detection:
+            p6 = self.conv6(c5)
+            p7 = self.conv7(F.relu(p6))
+            p5 = self.latlayer1(c5)
+            p4 = upsample_nearest(p5, hw(c4)) + self.latlayer2(c4)
+            p3 = upsample_nearest(p4, hw(c3)) + self.latlayer3(c3)
+            det = (self.toplayer2(p3), self.toplayer1(p4), self.toplayer0(p5),
+                   p6, p7)
 
         fp5 = self.toplayer(c5)
         fp4 = upsample_nearest(fp5, hw(c4)) + self.flatlayer1(c4)
@@ -146,5 +149,4 @@ class ResNetFPN(nn.Module):
         fp4 = self.smooth1(fp4)
         fp3 = self.smooth2(fp3)
         fp2 = self.smooth3(fp2)
-        return FPNFeatures(keypoint=(fp2, fp3, fp4, fp5),
-                           detection=(p3, p4, p5, p6, p7))
+        return FPNFeatures(keypoint=(fp2, fp3, fp4, fp5), detection=det)

@@ -104,8 +104,8 @@ class PoseNet(nn.Module):
 
     # ---- per-subnet forwards (NHWC in, NHWC out) -------------------------
 
-    def _features(self, img: torch.Tensor):
-        return self.fpn(_nhwc_to_nchw(img))
+    def _features(self, img: torch.Tensor, detection: bool = True):
+        return self.fpn(_nhwc_to_nchw(img), detection)
 
     def _detect(self, feats) -> Tuple[torch.Tensor, torch.Tensor]:
         reg = torch.cat([self.regressionModel(f) for f in feats.detection], 1)
@@ -114,9 +114,11 @@ class PoseNet(nn.Module):
 
     def keypoint_forward(self, img: torch.Tensor
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """(B,H,W,3) -> heatmaps (B,H/4,W/4,18) + 5 saved_for_loss tensors."""
+        """(B,H,W,3) -> heatmaps (B,H/4,W/4,18) + 5 saved_for_loss tensors.
+        The detection pyramid is not computed."""
         with self._autocast(img):
-            predict, saved = self.keypoint_head(self._features(img).keypoint)
+            predict, saved = self.keypoint_head(
+                self._features(img, detection=False).keypoint)
         return _nchw_to_nhwc(predict), [_nchw_to_nhwc(s) for s in saved]
 
     def detection_forward(self, img: torch.Tensor

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -33,8 +34,10 @@ SOURCE = "nms_suppress.cu"
 MAX_K = 1024
 
 # kernel launches since import (chip_smoke.py zeroes and reads it to show
-# that the serving path went through the kernel)
+# that each path went through the kernel); the evaluator launches from two
+# threads, so the count is kept under a lock
 launches = 0
+_launches_lock = threading.Lock()
 
 
 @functools.cache
@@ -85,5 +88,6 @@ def nms_suppress_cuda(sorted_boxes: torch.Tensor, valid: torch.Tensor,
             err = launch(*args)
     if err != 0:
         raise RuntimeError(f"nms_suppress kernel launch failed: CUDA error {err}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return keep

@@ -52,11 +52,9 @@ def _upsample_matrix(src: int, factor: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def _upsample_tensor(src: int, factor: int, device: torch.device) -> torch.Tensor:
-    """``_upsample_matrix`` (identity for factor 1) on ``device``, uploaded
-    once per device rather than on every call."""
-    m = (np.array(_upsample_matrix(src, factor)) if factor > 1
-         else np.eye(src, dtype=np.float32))
-    return torch.from_numpy(m).to(device)
+    """``_upsample_matrix`` on ``device``, uploaded once per device rather
+    than on every call."""
+    return torch.from_numpy(np.array(_upsample_matrix(src, factor))).to(device)
 
 
 class PeakSet(NamedTuple):
@@ -101,8 +99,6 @@ def find_peaks_refined_batched(heatmaps: torch.Tensor, thre1: float = 0.1,
         return PeakSet(coords, torch.where(valid, top_scores, -1.0), valid)
 
     s = 2 * win_size + 1
-    m = _upsample_tensor(s, f, hm.device)
-
     wy = (py - win_size).clamp(0, h - s)                       # window starts
     wx = (px - win_size).clamp(0, w - s)
     ar = torch.arange(s, device=hm.device)
@@ -112,7 +108,11 @@ def find_peaks_refined_batched(heatmaps: torch.Tensor, thre1: float = 0.1,
     patches = torch.gather(hm.reshape(b, num_j, h * w), 2, cell)
     patches = patches.reshape(b, num_j, max_peaks, s, s)
 
-    up = (m @ patches) @ m.t()                                 # (B,J,P,sf,sf)
+    if f > 1:
+        m = _upsample_tensor(s, f, hm.device)
+        up = (m @ patches) @ m.t()                             # (B,J,P,sf,sf)
+    else:
+        up = patches           # the identity upsample (multi-scale eval)
 
     sf = s * f
     flat_up = up.reshape(b, num_j, max_peaks, sf * sf)

@@ -91,3 +91,138 @@ class ForwardStub:
         if method is JPoseNet.full_forward:
             return params["heads"]
         return self.model.apply(params["v"], x, *args, method=method)
+
+
+# ---------------------------------------------------------------- multi-scale eval
+
+def person_keypoints(cx: float, cy: float):
+    """17 visible COCO keypoints spread around (cx, cy)."""
+    rng = np.random.RandomState(int(cx) * 7 + int(cy))
+    kps = []
+    for j in range(17):
+        kps += [cx + (j % 5) * 6 - 12 + rng.randint(0, 2),
+                cy + (j // 5) * 8 - 12 + rng.randint(0, 2), 2]
+    return kps
+
+
+def image_value(img_id: int) -> int:
+    """The constant pixel value of synthetic image ``img_id``: resized by
+    any lerp it stays the same, so a stubbed forward reads the image's
+    identity from its batch."""
+    return 40 + 20 * img_id
+
+
+def synthetic_coco(root: str, people_per_image, hw=(160, 224)):
+    """A COCO keypoint GT with one person per entry of ``people_per_image``
+    (a list of [(cx, cy), ...] per image), written as ``gt.json`` beside
+    constant-valued PNG images.  Returns (ann_file, gt dict)."""
+    import json
+    import os
+
+    import cv2
+
+    h, w = hw
+    imgs, anns = [], []
+    aid = 1
+    for img_id, centers in enumerate(people_per_image, start=1):
+        name = f"{img_id}.png"
+        cv2.imwrite(os.path.join(root, name),
+                    np.full((h, w, 3), image_value(img_id), np.uint8))
+        imgs.append({"id": img_id, "height": h, "width": w, "file_name": name})
+        for cx, cy in centers:
+            kps = person_keypoints(cx, cy)
+            xs, ys = kps[0::3], kps[1::3]
+            x0, y0 = min(xs) - 6, min(ys) - 6
+            bbox = [x0, y0, max(xs) - x0 + 6, max(ys) - y0 + 6]
+            anns.append({"id": aid, "image_id": img_id, "category_id": 1,
+                         "iscrowd": 0, "num_keypoints": 17,
+                         "area": bbox[2] * bbox[3], "bbox": bbox,
+                         "keypoints": kps})
+            aid += 1
+    gt = {"images": imgs, "categories": [{"id": 1, "name": "person"}],
+          "annotations": anns}
+    ann_file = os.path.join(root, "gt.json")
+    with open(ann_file, "w") as f:
+        json.dump(gt, f)
+    return ann_file, gt
+
+
+class GTForward:
+    """Stands in for the network forward of the JAX and the port evaluator
+    in a multi-scale eval: for a (B, H, W, 3) batch it returns GT-derived
+    stride-4 heatmaps (row 0 the image, row 1 its mirror with left/right
+    joints swapped) and the GT boxes at the batch's scale, score 0.9.  The
+    image is read from the batch's pixel value and the scale from its shape,
+    so the stub keeps no call order and also serves an escalation's second
+    dispatch from the evaluator's worker thread.  ``calls`` counts the
+    forwards per image."""
+
+    def __init__(self, gt: dict, inp_size: int, scale_search, bucket: int = 64):
+        import collections
+
+        from multiposenet_tpu.data.augment import FLIP_ORDER_18
+        from multiposenet_tpu.data.datasets import add_neck
+        from multiposenet_tpu.eval.multiscale import crop_shape_only, get_multipliers
+
+        self.flip_order = FLIP_ORDER_18
+        self.images = {}
+        for rec in gt["images"]:
+            h, w = rec["height"], rec["width"]
+            joints, boxes = [], []
+            for ann in gt["annotations"]:
+                if ann["image_id"] != rec["id"]:
+                    continue
+                j17 = np.asarray(ann["keypoints"], np.float64).reshape(17, 3)
+                # drawing convention: COCO v=2 -> internal 1 (drawn)
+                j17[:, 2] = np.where(j17[:, 2] == 2, 1.0, 2.0)
+                joints.append(add_neck(j17))
+                b = ann["bbox"]
+                boxes.append([b[0], b[1], b[0] + b[2], b[1] + b[3]])
+            scales = {}
+            for m in get_multipliers(h, inp_size, scale_search):
+                padded, im_scale, _ = crop_shape_only((h, w), m * h, bucket=bucket)
+                assert padded not in scales, "two scales share a batch shape"
+                scales[padded] = im_scale
+            self.images[image_value(rec["id"])] = (
+                rec["id"], np.stack(joints), np.asarray(boxes, np.float32), w,
+                scales)
+        self.calls = collections.Counter()
+
+    def __call__(self, batch: np.ndarray):
+        from multiposenet_tpu.ops.heatmap import make_heatmaps_np
+
+        img_id, joints, boxes, w, scales = self.images[int(batch[0, 0, 0, 0])]
+        self.calls[img_id] += 1
+        bs, dh, dw = batch.shape[:3]
+        s = scales[(dh, dw)]
+        rows = []
+        for row in range(bs):
+            j = joints.copy()
+            if row == 1:
+                j = j[:, self.flip_order]
+                j[:, :, 0] = w - 1 - j[:, :, 0]
+            j[:, :, :2] *= s
+            rows.append(make_heatmaps_np(j, dh // 4, dw // 4, stride=4, sigma=6.0))
+        bx = np.repeat((boxes * np.float32(s))[None], bs, 0)
+        return np.stack(rows), bx, np.full(bx.shape[:2], 0.9, np.float32)
+
+    def jax_pipeline(self, hw, with_peaks=True, with_detections=True):
+        """``Evaluator.pipeline`` of the JAX package."""
+        import types
+
+        def run(params, batch):
+            hm, bx, sc = self(np.asarray(batch))
+            return types.SimpleNamespace(
+                heatmaps=jnp.asarray(hm), detections=types.SimpleNamespace(
+                    scores=jnp.asarray(sc), boxes=jnp.asarray(bx)))
+        return run
+
+    def port_pipeline(self, hw, with_peaks=True, with_detections=True):
+        """``Evaluator.pipeline`` of the port."""
+        import types
+
+        def run(batch):
+            hm, bx, sc = (torch.from_numpy(a) for a in self(batch.numpy()))
+            return types.SimpleNamespace(
+                heatmaps=hm, detections=types.SimpleNamespace(scores=sc, boxes=bx))
+        return run
