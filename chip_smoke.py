@@ -42,9 +42,27 @@ Phases (any failure exits non-zero, and no result line is printed):
               held against the plain twin bit for bit, then a timed pass
               with the split by stage (CUDA events) and its launch counts,
               then the image loop alone, pipelined and serial over the same
-              images, timed and profiled.
+              images, timed and profiled;
+  7a. train check  one train step of each stage (keypoint, detection, PRN)
+              on the card and on the CPU from the same seeded weights and
+              batch (resnet50, 96 px, batch 2, float32, TF32 off, PRN
+              dropout off): losses to 1e-4, updates of the trainable
+              parameters, frozen parameters bit-unchanged, the keypoint
+              stage's BatchNorm running statistics; each step again in
+              float64, where the trainable gradients are held too;
+  7b. training  the reference's stage chain at its configurations through
+              Trainer.train (ResNet-101 FPN, float32): keypoint at 480 px
+              batch 6, detection at 608 px batch 25 from the keypoint
+              checkpoint, PRN at batch 8 from the detection checkpoint, on
+              synthetic in-memory batches: per stage a warm-up epoch, an
+              epoch timed with CUDA events, an epoch under torch.profiler,
+              the checkpoint, validation and best copy, one timed
+              AsyncSaver save; every loss finite, the other stages' groups
+              bit-unchanged, and the keypoint loss falling over 3 steps on a
+              fixed batch.
 
-The weights are random, drawn from a seed; the detection output convs are
+Training reaches no hand-written kernel: the conv stack runs on cuDNN, the
+rest as PyTorch ops.  The weights are random, drawn from a seed; the detection output convs are
 rescaled so that scores and boxes vary between anchors, and the thresholds
 are lowered so that boxes and peaks exist (the eval's peak threshold is set
 from the images' own folded heatmaps; in 6a the heatmap output conv is
@@ -58,6 +76,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1022,6 +1041,337 @@ def full_width_eval(model, base_cfg, card: str, device: str = "cuda") -> dict:
             "serial_split_ms": serial_split, "escalated": len(ev.escalated)}
 
 
+# ---------------------------------------------------------------- phase 7
+
+TRAIN_STAGES = ("keypoint", "detection", "prn")
+# 7b: steps of the warm-up epoch, the timed epoch and the profiled epoch
+TRAIN_EPOCH_STEPS = (3, 20, 8)
+CHECK_LR = 1e-4
+
+
+def train_batch(stage: str, cfg, b: int, rng: np.random.RandomState) -> dict:
+    """A synthetic batch of ``stage`` as a data loader hands it to the
+    trainer: numpy arrays on the host.  Keypoint: 3 people of random
+    joints (v 0 or 1) in ``max_people`` slots, a mask in [0.5, 1);
+    detection: 1-4 person boxes in ``max_gt_boxes`` rows padded with -1;
+    PRN: sparse one-hot marks."""
+    size = cfg.data.inp_size
+    if stage == "keypoint":
+        joints = np.full((b, cfg.data.max_people, 18, 3), 2.0, np.float32)
+        joints[:, :3, :, :2] = rng.uniform(0, size, (b, 3, 18, 2))
+        joints[:, :3, :, 2] = rng.randint(0, 2, (b, 3, 18))
+        return {"image": rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8),
+                "joints": joints,
+                "mask": rng.uniform(0.5, 1.0, (b, size // 4, size // 4)
+                                    ).astype(np.float32)}
+    if stage == "detection":
+        boxes = np.full((b, cfg.data.max_gt_boxes, 5), -1.0, np.float32)
+        for i in range(b):
+            n = rng.randint(1, 5)
+            xy = rng.uniform(0, 0.6 * size, (n, 2))
+            boxes[i, :n, :2] = xy
+            boxes[i, :n, 2:4] = xy + rng.uniform(0.1 * size, 0.4 * size, (n, 2))
+            boxes[i, :n, 4] = 0.0
+        return {"image": rng.randint(0, 256, (b, size, size, 3), dtype=np.uint8),
+                "boxes": boxes}
+    gh, gw = cfg.model.prn_height, cfg.model.prn_width
+    return {"weights_marks": (rng.rand(b, gh, gw, 17) > 0.99).astype(np.float32),
+            "label_marks": (rng.rand(b, gh, gw, 17) > 0.995).astype(np.float32)}
+
+
+def one_train_step(cfg, stage: str, start: dict, batch: dict, device: str,
+                   dtype=torch.float32):
+    """One train step of ``stage`` from the weights ``start`` on ``device``;
+    returns its logs as floats, the state_dict after it and the trainable
+    parameters' gradients, on the CPU."""
+    from multiposenet_tpu_torch.engine import train_steps as ts
+    from multiposenet_tpu_torch.models.posenet import build_trainable_posenet
+
+    model = build_trainable_posenet(cfg.model, torch.device(device), start).to(dtype)
+    state = ts.create_train_state(cfg, stage, model=model)
+    step, _ = ts.STEP_FACTORIES[stage](cfg, device=device)
+    extra = (torch.Generator(device).manual_seed(0),) if stage == "prn" else ()
+    _, logs = step(state, batch, CHECK_LR, *extra)
+    return ({k: float(v) for k, v in logs.items()},
+            {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+             if p.grad is not None})
+
+
+def compare_train_steps(stage: str, start: dict, a, b, update_tol,
+                        max_share: float, stats_rtol: float,
+                        grad_rtol=None) -> dict:
+    """Hold step ``a`` (the card) against step ``b`` (the CPU): the loss to
+    1e-4 and the other logs to 1e-3 relative; frozen parameters
+    bit-unchanged on both; running statistics within ``stats_rtol`` of each
+    tensor's largest value (keypoint) or bit-unchanged.  The trainable
+    parameters' updates: at most ``max_share`` of their elements off by
+    more than 1e-2 lr, and none by more than ``update_tol`` lr (None: by
+    more than one Adam step can move it both ways, 2 lr).  With
+    ``grad_rtol`` the trainable gradients too, which Adam's first step
+    reduces to about their sign: each tensor within ``grad_rtol`` of its
+    largest CPU gradient, or of 1e-9 of the stage's largest where that is
+    larger."""
+    from multiposenet_tpu_torch.engine.train_steps import is_trainable
+
+    (la, sa, ga), (lb, sb, gb) = a, b
+    for k in lb:
+        tol = 1e-4 if k == "loss" else 1e-3
+        if not (np.isfinite(la[k]) and abs(la[k] - lb[k]) <= tol * abs(lb[k])):
+            raise AssertionError(f"{stage} step: {k} {la[k]} on the card, "
+                                 f"{lb[k]} on the CPU")
+    worst, worst_key, off, n = 0.0, "", 0, 0
+    for k, x in start.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        x = x.to(sa[k].dtype)
+        if k.endswith(("running_mean", "running_var")):
+            if stage != "keypoint":
+                if not (torch.equal(sa[k], x) and torch.equal(sb[k], x)):
+                    raise AssertionError(f"{stage} step moved {k}")
+            elif (sa[k] - sb[k]).abs().max() > stats_rtol * sb[k].abs().max():
+                raise AssertionError(f"{stage} step: {k} differs")
+            continue
+        if not is_trainable(k, stage):
+            if not (torch.equal(sa[k], x) and torch.equal(sb[k], x)):
+                raise AssertionError(f"{stage} step moved frozen {k}")
+            continue
+        d = ((sa[k] - x) - (sb[k] - x)).abs().double() / CHECK_LR
+        if float(d.max()) > worst:
+            worst, worst_key = float(d.max()), k
+        off += int((d > 1e-2).sum())
+        n += d.numel()
+    limit = 2.0 + 1e-3 if update_tol is None else update_tol
+    if worst > limit or off > max_share * n:
+        raise AssertionError(f"{stage} step: {off} of {n} update elements off "
+                             f"by more than 1e-2 lr, the most {worst:.3g} lr "
+                             f"in {worst_key}")
+    out = {"worst_update_lr": worst, "worst_key": worst_key, "share_off": off / n}
+    if grad_rtol is not None:
+        if set(ga) != set(gb) or not gb:
+            raise AssertionError(f"{stage} step: gradients of {sorted(ga)} on "
+                                 f"the card, of {sorted(gb)} on the CPU")
+        top = max(float(g.abs().max()) for g in gb.values())
+        rel = {k: float((ga[k] - g).abs().max())
+               / max(float(g.abs().max()), 1e-9 * top) for k, g in gb.items()}
+        k = max(rel, key=rel.get)
+        if rel[k] > grad_rtol:
+            raise AssertionError(f"{stage} step: gradient of {k} off by "
+                                 f"{rel[k]:.3g} of its largest value")
+        out.update(worst_grad_rel=rel[k], worst_grad_key=k)
+    return out
+
+
+def check_training_against_cpu(device: str = "cuda") -> None:
+    """Phase 7a: one train step of each stage on the card and on the CPU
+    from the same seeded weights (detection output convs drawn at std 0.01,
+    so that gradients reach every trainable layer) and batch: resnet50,
+    96 px, batch 2, TF32 off, PRN dropout off; float32, then float64.  In
+    float32 the two devices round differently and a few elements flip: a
+    ReLU gate of a value near zero, or the keypoint stage's ill-conditioned
+    gradient (BatchNorm on 18 values per channel in layer4), and Adam moves
+    each element by about lr whatever its gradient's size.  So at most 1% of
+    the update elements may be off by more than 1e-2 lr; in float64 none
+    may be off by more than 5e-2 lr, and each trainable gradient is within
+    1e-6 of its tensor's largest CPU value."""
+    from multiposenet_tpu_torch.config import Config, DataConfig, ModelConfig
+    from multiposenet_tpu_torch.engine.inference import full_fp32_matmul
+    from multiposenet_tpu_torch.models.posenet import build_trainable_posenet
+
+    cfg = Config(model=ModelConfig(backbone="resnet50", prn_dropout=0.0),
+                 data=DataConfig(inp_size=96, max_people=4, max_gt_boxes=8))
+    cfg64 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype=torch.float64))
+    start = build_trainable_posenet(cfg.model, torch.device("cpu"), seed=SEED + 7,
+                                    head_output_std=0.01).state_dict()
+    rng = np.random.RandomState(SEED + 7)
+    report = []
+    with full_fp32_matmul():
+        for stage in TRAIN_STAGES:
+            batch = train_batch(stage, cfg, 2, rng)
+            for c, dtype, tol, share in ((cfg, torch.float32, None, 1e-2),
+                                         (cfg64, torch.float64, 5e-2, 0.0)):
+                f64 = dtype == torch.float64
+                a = one_train_step(c, stage, start, batch, device, dtype)
+                b = one_train_step(c, stage, start, batch, "cpu", dtype)
+                got = compare_train_steps(stage, start, a, b, tol, share,
+                                          1e-9 if f64 else 2e-3,
+                                          grad_rtol=1e-6 if f64 else None)
+                report.append(
+                    f"{stage} {str(dtype).split('.')[-1]} loss "
+                    f"{a[0]['loss']:.10g} / {b[0]['loss']:.10g}, updates "
+                    f"{100 * got['share_off']:.4f}% off by > 1e-2 lr, max "
+                    f"{got['worst_update_lr']:.3g} lr ({got['worst_key']})"
+                    + (f", gradients within {got['worst_grad_rel']:.3g} of "
+                       f"each tensor's largest ({got['worst_grad_key']})"
+                       if f64 else ""))
+    log("train check: one step per stage, CUDA / CPU, resnet50 96 px batch 2, "
+        "TF32 off, lr 1e-4, frozen parameters bit-unchanged on both: "
+        + "; ".join(report))
+
+
+class EpochBatches:
+    """In-memory training data: epoch ``e`` yields ``counts[e]`` batches,
+    cycling through ``pool``."""
+
+    def __init__(self, pool, counts):
+        self.pool, self.counts, self.epoch = pool, counts, 0
+
+    def __len__(self):
+        return self.counts[min(self.epoch, len(self.counts) - 1)]
+
+    def __iter__(self):
+        n = len(self)
+        self.epoch += 1
+        return (self.pool[i % len(self.pool)] for i in range(n))
+
+
+def train_stage(cfg, stage: str, init_ckpt, save_root: str, card: str,
+                device: str = "cuda") -> dict:
+    """One stage of 7b through ``Trainer.train``: a warm-up epoch, an epoch
+    timed with CUDA events around every step, an epoch under
+    torch.profiler, then the checkpoint, the validation and the best copy
+    of the last epoch.  Returns the stage's numbers and its checkpoint."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
+    from multiposenet_tpu_torch.engine.train_steps import is_trainable
+    from multiposenet_tpu_torch.engine.trainer import Trainer
+
+    b = cfg.train.batch_size
+    rng = np.random.RandomState(SEED + 10 + TRAIN_STAGES.index(stage))
+    pool = [train_batch(stage, cfg, b, rng) for _ in range(3)]
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train_data=EpochBatches(pool, TRAIN_EPOCH_STEPS),
+                      val_data=pool[:1], init_ckpt_params=init_ckpt, device=device)
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+
+    events, losses, marks = [], [], {}
+    step_fn = trainer.train_step
+
+    def timed_step(state, batch, *args):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step_fn(state, batch, *args)
+        ev[1].record()
+        events.append((trainer.last_epoch, ev))
+        losses.append(out[1]["loss"])
+        return out
+    trainer.train_step = timed_step
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def on_start(tr):
+        torch.cuda.synchronize()
+        if tr.last_epoch == 2:
+            torch.cuda.reset_peak_memory_stats()
+        if tr.last_epoch == 3:
+            prof.start()
+        marks[tr.last_epoch] = time.perf_counter()
+
+    def on_end(tr):
+        torch.cuda.synchronize()
+        marks[tr.last_epoch] = time.perf_counter() - marks[tr.last_epoch]
+        if tr.last_epoch == 2:
+            marks["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if tr.last_epoch == 3:
+            prof.stop()
+    trainer.on_start_epoch_hooks.append(on_start)
+    trainer.on_end_epoch_hooks.append(on_end)
+    trainer.train()
+    total_s = time.perf_counter() - t0
+
+    loss = torch.stack([x.float() for x in losses]).cpu()
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"{stage}: a non-finite loss in {loss.tolist()}")
+    end = trainer.model.state_dict()
+    moved = set()
+    for k, v in end.items():
+        bn = k.endswith(("running_mean", "running_var", "num_batches_tracked"))
+        if bn and stage == "keypoint":
+            continue
+        if bn or not is_trainable(k, stage):
+            if not torch.equal(v, start[k]):
+                raise AssertionError(f"{stage} stage changed {k}, not its own")
+        elif not torch.equal(v, start[k]):
+            moved.add(k)
+    if not moved:
+        raise AssertionError(f"{stage} stage trained nothing")
+
+    timed = [ev for epoch, ev in events if epoch == 2]
+    ms = timed[0][0].elapsed_time(timed[-1][1]) / len(timed)
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()]
+    kernel_ms = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    n_prof = TRAIN_EPOCH_STEPS[2]
+
+    # one checkpoint save of the whole train state, as the trainer makes it
+    t1 = time.perf_counter()
+    fut = trainer.saver.save(os.path.join(save_root, "timing"), trainer.state, 0)
+    enqueue_ms = (time.perf_counter() - t1) * 1e3
+    fut.result()
+    save_ms = (time.perf_counter() - t1) * 1e3
+    ckpt = ckpt_lib.latest_checkpoint(trainer.save_dir)
+
+    fell = None
+    if stage == "keypoint":
+        fixed = [step_fn(trainer.state, pool[0], CHECK_LR)[1]["loss"] for _ in range(3)]
+        fell = [float(x) for x in fixed]
+        if not fell[-1] < fell[0]:
+            raise AssertionError(f"keypoint loss did not fall over 3 steps: {fell}")
+    unit = "samples" if stage == "prn" else "images"
+    size = "" if stage == "prn" else f" {cfg.data.inp_size} px"
+    log(f"train {stage}: {cfg.model.backbone}{size} batch {b} "
+        f"{str(cfg.model.compute_dtype).split('.')[-1]} through Trainer.train "
+        f"({' + '.join(map(str, TRAIN_EPOCH_STEPS))} steps, lr {cfg.train.init_lr:g}, "
+        f"TF32 convs {torch.backends.cudnn.allow_tf32}, TF32 matmuls "
+        f"{torch.backends.cuda.matmul.allow_tf32}): {ms:.2f} ms/step between "
+        f"CUDA events over {len(timed)} steps = {b / ms * 1e3:.1f} {unit}/s; "
+        f"wall {marks[2] / len(timed) * 1e3:.2f} ms/step; peak memory "
+        f"{marks['peak']:.2f} GiB; profiled {n_prof} steps: wall "
+        f"{marks[3] / n_prof * 1e3:.2f} ms/step, kernels {kernel_ms / n_prof:.2f} "
+        f"ms/step, device busy share {kernel_ms / (marks[3] * 1e3):.3f}; top "
+        f"kernels ms/step: " + ", ".join(f"{k[:50]} {v / n_prof:.3f}" for k, v in rows[:6])
+        + f"; one AsyncSaver save {save_ms:.0f} ms ({enqueue_ms:.1f} ms on the "
+        f"caller); losses {loss[0]:.5g} -> {loss[-1]:.5g}, all finite; "
+        f"{len(moved)} tensors of its own groups moved, every other bit-unchanged"
+        + (f"; fixed-batch losses at lr 1e-4 {fell}" if fell else "")
+        + f"; stage wall {total_s:.1f} s [{card}]")
+    return {"ms_per_step": ms, "ckpt": ckpt, "peak_gib": marks["peak"],
+            "busy_share": kernel_ms / (marks[3] * 1e3)}
+
+
+def full_width_training(card: str, device: str = "cuda", configs=None) -> dict:
+    """Phase 7b: the reference's stage chain at its configurations, ResNet-101
+    FPN float32: keypoint (480 px, batch 6), then detection (608 px, batch
+    25) from the keypoint checkpoint, then PRN (batch 8) from the detection
+    checkpoint, each through Trainer on in-memory synthetic batches."""
+    import shutil
+
+    from multiposenet_tpu_torch.config import (
+        detection_train_config, keypoint_train_config, prn_train_config)
+
+    configs = configs or {"keypoint": keypoint_train_config(),
+                          "detection": detection_train_config(),
+                          "prn": prn_train_config()}
+    save_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "extra", "chip_smoke_train")
+    shutil.rmtree(save_root, ignore_errors=True)
+    out, ckpt = {}, None
+    try:
+        for stage in TRAIN_STAGES:
+            cfg = configs[stage]
+            cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                cfg.train, max_epoch=len(TRAIN_EPOCH_STEPS),
+                save_freq_epoch=len(TRAIN_EPOCH_STEPS), val_nbatch_end_epoch=1,
+                val_freq=0, save_freq_step=10 ** 9, print_freq=10 ** 9,
+                save_dir=save_root, exp_name=stage, seed=SEED))
+            out[stage] = train_stage(cfg, stage, ckpt, save_root, card, device)
+            ckpt = out[stage]["ckpt"]
+    finally:
+        shutil.rmtree(save_root, ignore_errors=True)
+    return out
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1167,6 +1517,12 @@ def main() -> int:
 
     # ---- 6b. multi-scale COCO eval at full width -----------------------------
     full_eval = full_width_eval(model, cfg, card)
+    del model, predictor, pipe, heads, outs, bench_imgs
+    torch.cuda.empty_cache()
+
+    # ---- 7. training: CUDA against CPU, then the stage chain at full width ----
+    check_training_against_cpu()
+    full_width_training(card)
 
     kernels = [{
         "name": "nms_suppress",

@@ -14,7 +14,7 @@ the scale-1.0 forward only.  So there is no ``use_pallas_nms``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +33,7 @@ class ModelConfig:
     prior: float = 0.01                  # classifier bias init
     prn_node_count: int = 1024           # PRN hidden width
     prn_coeff: int = 2                   # PRN grid = (28*coeff, 18*coeff)
+    prn_dropout: float = 0.5             # PRN dropout rate while training
     # activation dtype of convs and matmuls; parameters stay float32
     compute_dtype: torch.dtype = torch.float32
 
@@ -70,6 +71,12 @@ class DetectionConfig:
     nms_thresh: float = 0.5         # IoU threshold, +1px convention
     test_score_thresh: float = 0.5  # post-NMS threshold at test time
     max_detections: int = 100       # fixed-K NMS capacity
+    # focal loss (reference losses.py:29-30, 65-77)
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    pos_iou: float = 0.5            # anchors at IoU >= pos_iou are positive
+    neg_iou: float = 0.4            # ... below neg_iou negative; between, ignored
+    smooth_l1_beta: float = 1.0 / 9.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +106,51 @@ class PRNConfig:
     # tester.py:400-406 runs the PRN per person, unbounded).  0 disables it
     escalate_max_people: int = 256
     score_window: int = 15          # NxN window around a peak for PRN scoring
+    min_num_keypoints: int = 3      # PRN training anns need more keypoints than this
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     coco_root: str = "/data/COCO/"
+    inp_size: int = 480             # training input: keypoint 480 / detection 608
     feat_stride: int = 4            # heatmap stride: peaks scale by it
+    sigma: float = 7.0              # heatmap target gaussian
+    max_gt_boxes: int = 64          # padded GT box capacity (pad rows are -1)
+    max_people: int = 32            # padded person capacity of the joint targets
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Engine parameters (reference trainer.py:44-105 and the per-stage
+    training scripts).  One device: the JAX package's mesh fields wait for
+    multi-GPU training, and a torch step updates the state in place, so
+    there is no ``donate_state``."""
+
+    exp_name: str = "multipose101"
+    subnet: str = "keypoint"        # 'keypoint' | 'detection' | 'prn'
+    batch_size: int = 6
+    max_epoch: int = 80
+    init_lr: float = 1e-4
+    weight_decay: float = 0.0
+    optimizer: str = "adam"         # 'adam' | 'sgd'
+    # grad clip by the INFINITY norm (reference trainer.py:255-256); None = off
+    max_grad_norm: Optional[float] = None
+    # ReduceLROnPlateau(factor=lr_decay, patience) on the val loss
+    lr_decay: float = 0.1
+    plateau_patience: int = 3
+    save_dir: str = "./extra/models"
+    ckpt: Optional[str] = None      # resume from; None = the newest in save_dir
+    re_init: bool = False           # with ckpt None: start fresh, no auto-resume
+    ignore_opt_state: bool = False  # resume the model only (partial restore)
+    zero_epoch: bool = False        # resume the state but restart at epoch 0
+    save_freq_epoch: int = 1
+    save_freq_step: int = 10000
+    save_nckpt_max: int = 8
+    val_nbatch: int = 2
+    val_freq: int = 2000
+    val_nbatch_end_epoch: int = 200
+    print_freq: int = 20
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +173,33 @@ class Config:
     peaks: PeakConfig = dataclasses.field(default_factory=PeakConfig)
     prn: PRNConfig = dataclasses.field(default_factory=PRNConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+
+
+def _stage_config(data: dict, **train) -> Config:
+    c = Config()
+    return dataclasses.replace(
+        c, data=dataclasses.replace(c.data, **data),
+        train=dataclasses.replace(c.train, **train))
+
+
+def keypoint_train_config() -> Config:
+    """Stage 1 (reference multipose_keypoint_train.py:16-113)."""
+    return _stage_config(dict(inp_size=480), subnet="keypoint", batch_size=6,
+                         max_epoch=80, init_lr=1e-4, plateau_patience=3)
+
+
+def detection_train_config() -> Config:
+    """Stage 2 (reference multipose_detection_train.py:19-53)."""
+    return _stage_config(dict(inp_size=608), subnet="detection", batch_size=25,
+                         max_epoch=50, init_lr=1e-5, plateau_patience=3)
+
+
+def prn_train_config() -> Config:
+    """Stage 3 (reference multipose_prn_train.py:22-85)."""
+    return _stage_config({}, subnet="prn", batch_size=8, max_epoch=40,
+                         init_lr=1e-3, plateau_patience=2)
 
 
 def resolve_device(device=None) -> torch.device:

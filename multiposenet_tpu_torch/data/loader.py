@@ -1,0 +1,175 @@
+"""Threaded prefetching batch loader and the host-to-device prefetch — the
+port's copy of multiposenet_tpu/data/loader.py.
+
+``Loader`` (numpy and threads only) replaces the reference's torch
+DataLoader (datasets/dataloader.py:6-38): worker threads build samples,
+batches are stacked as numpy arrays and emitted in order, a few steps
+ahead.  It serves one process; the JAX package's per-host sharding has no
+counterpart until the port trains on several GPUs.  ``device_prefetch``
+puts batches on the GPU two steps ahead of the train loop.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from multiposenet_tpu_torch.config import resolve_device
+
+
+class Loader:
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 num_workers: int = 8, seed: int = 0, drop_last: bool = True,
+                 prefetch: int = 4):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _index_batches(self):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        n = len(order)
+        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for i in range(0, stop, self.batch_size):
+            yield order[i: i + self.batch_size]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        self.epoch += 1
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        idx_q: "queue.Queue" = queue.Queue()
+        batches = list(self._index_batches())
+        for bi, b in enumerate(batches):
+            idx_q.put((bi, b))
+
+        results: Dict[int, Dict] = {}
+        results_lock = threading.Lock()
+        next_emit = [0]
+        done = threading.Event()
+
+        def worker(wid: int):
+            rng = np.random.default_rng((self.seed + self.epoch) * 10007 + wid)
+            while not done.is_set():
+                try:
+                    bi, idxs = idx_q.get_nowait()
+                except queue.Empty:
+                    return
+                samples = [self.dataset.__getitem__(int(i), rng=rng)
+                           for i in idxs]
+                batch = {k: np.stack([s[k] for s in samples])
+                         for k in samples[0]}
+                with results_lock:
+                    results[bi] = batch
+                # emit in order
+                while True:
+                    with results_lock:
+                        if next_emit[0] in results:
+                            item = results.pop(next_emit[0])
+                            next_emit[0] += 1
+                        else:
+                            break
+                    out_q.put(item)
+
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+                   for w in range(self.num_workers)]
+        for t in threads:
+            t.start()
+
+        try:
+            for _ in range(len(batches)):
+                yield out_q.get()
+        finally:
+            done.set()
+
+
+def device_prefetch(iterator: Iterable, device=None, depth: int = 2
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Overlap host-to-device copies with compute: a background thread puts
+    each batch (a dict of numpy arrays or tensors) on ``device`` up to
+    ``depth`` batches ahead of the consumer.
+
+    On a GPU the thread copies each array into pinned host memory and
+    enqueues a ``non_blocking`` copy on a side stream, then records an
+    event.  The consumer's current stream waits on that event before the
+    batch is handed out, and each tensor is recorded on the consumer's
+    stream (``record_stream``), so its memory is not reused before the
+    consumer's work on it has run.
+
+    An exception in the source iterator is raised in the consumer; a
+    consumer that stops early stops the thread (its puts time out and check
+    the stop flag).
+    """
+    device = resolve_device(device)
+    on_cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if on_cuda else None
+    out_q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    _END = object()
+
+    def put_on_device(batch):
+        if not on_cuda:
+            return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}, None
+        with torch.cuda.stream(side):
+            out = {}
+            for k, v in batch.items():
+                t = torch.as_tensor(v)
+                if t.device.type == "cpu":
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return out, ready
+
+    def _put(item) -> bool:
+        """Stop-aware put: never blocks past the consumer's exit."""
+        while not stop.is_set():
+            try:
+                out_q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def pump():
+        try:
+            for batch in iterator:
+                if not _put((None, put_on_device(batch))):
+                    return
+        except BaseException as e:  # propagate into the consumer
+            _put((e, None))
+            return
+        _put((None, _END))
+
+    th = threading.Thread(target=pump, daemon=True, name="device_prefetch")
+    th.start()
+    try:
+        while True:
+            exc, item = out_q.get()
+            if exc is not None:
+                raise exc
+            if item is _END:
+                return
+            batch, ready = item
+            if ready is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(ready)
+                for t in batch.values():
+                    t.record_stream(stream)
+            yield batch
+    finally:
+        stop.set()

@@ -61,17 +61,22 @@ def full_fp32_matmul():
 
 
 @functools.lru_cache(maxsize=8)
-def _imagenet_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _imagenet_stats(device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     # uploaded once per device: a pageable upload per call would block the
     # host until the device has drained its queue
     return (torch.from_numpy(IMAGENET_MEAN).to(device),
-            torch.from_numpy(IMAGENET_STD).to(device))
+            torch.from_numpy(IMAGENET_STD).to(device),
+            torch.tensor(255.0, device=device))
 
 
 def preprocess_on_device(img_rgb_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 RGB (B,H,W,3) -> ImageNet-normalised float32 (B,H,W,3)."""
-    mean, std = _imagenet_stats(img_rgb_u8.device)
-    x = img_rgb_u8.float() / 255.0
+    """uint8 RGB (B,H,W,3) -> ImageNet-normalised float32 (B,H,W,3).  Every
+    divisor is a tensor: PyTorch's CUDA backend turns a division by a host
+    scalar into a product with its reciprocal, so the card would round
+    otherwise than the CPU."""
+    mean, std, c255 = _imagenet_stats(img_rgb_u8.device)
+    x = img_rgb_u8.float() / c255
     return (x - mean) / std
 
 

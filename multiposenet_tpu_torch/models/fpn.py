@@ -9,7 +9,11 @@ Modules take and return NCHW tensors (run them in ``channels_last`` memory
 format on the GPU); ``models/posenet.PoseNet`` converts from and to the JAX
 package's NHWC layout at its public methods.  Submodule names follow the
 reference ``state_dict`` keys (``fpn.layer3.22.downsample.0.weight``).
-BatchNorm runs in eval mode with eps 1e-5.
+
+BatchNorm (eps 1e-5) normalises with its running statistics unless a
+forward is given ``train=True``, as the keypoint train step does: then it
+normalises with the batch's statistics and updates the running ones with
+Flax's rule (``BatchNorm``).  The module's own ``training`` flag is not read.
 """
 
 from __future__ import annotations
@@ -51,8 +55,38 @@ def upsample_nearest(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tenso
     return x.index_select(3, offsets(w, tw)) if tw != w else x
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with Flax's training semantics (flax/linen/normalization.py,
+    ``momentum=0.9`` as the JAX trunk sets it).  ``train=True`` normalises
+    with the batch mean and the BIASED batch variance, and updates
+    ``running = 0.9 * running + 0.1 * batch`` with that biased variance,
+    where ``nn.BatchNorm2d`` would use the unbiased one (n/(n-1) larger).
+    The statistics are taken in at least float32.  ``num_batches_tracked``
+    is left as it is: the momentum is fixed."""
+
+    FLAX_MOMENTUM = 0.9
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        # One pass for the normalisation and the statistics: at momentum 1.0
+        # F.batch_norm writes the batch mean and the unbiased batch variance
+        # into the zeroed buffers it is given, which are then folded into the
+        # running ones with the variance rescaled to the biased one.
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        n = x.numel() // x.shape[1]
+        m = self.FLAX_MOMENTUM
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
+        return out
 
 
 class Bottleneck(nn.Module):
@@ -61,24 +95,25 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = _bn(planes)
+        self.bn1 = BatchNorm(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn2 = _bn(planes)
+        self.bn2 = BatchNorm(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = _bn(planes * 4)
+        self.bn3 = BatchNorm(planes * 4)
         self.downsample = None
         if stride != 1 or inplanes != planes * 4:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-                _bn(planes * 4))
+                BatchNorm(planes * 4))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = F.relu(self.bn2(self.conv2(out), train))
+        out = self.bn3(self.conv3(out), train)
         if self.downsample is not None:
-            x = self.downsample(x)
+            conv, bn = self.downsample
+            x = bn(conv(x), train)
         return F.relu(out + x)
 
 
@@ -90,7 +125,7 @@ class ResNetFPN(nn.Module):
                  channels: int = 256):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = _bn(64)
+        self.bn1 = BatchNorm(64)
         inplanes = 64
         for li, (planes, blocks, stride) in enumerate(
                 zip((64, 128, 256, 512), block_counts, (1, 2, 2, 2)), start=1):
@@ -121,15 +156,23 @@ class ResNetFPN(nn.Module):
         self.smooth2 = conv(ch, 3)
         self.smooth3 = conv(ch, 3)
 
-    def forward(self, x: torch.Tensor, detection: bool = True) -> FPNFeatures:
+    def _stage(self, name: str, x: torch.Tensor, train: bool) -> torch.Tensor:
+        for block in getattr(self, name):
+            x = block(x, train)
+        return x
+
+    def forward(self, x: torch.Tensor, detection: bool = True,
+                train: bool = False) -> FPNFeatures:
         """NCHW image -> both pyramids; ``detection=False`` skips the
-        detection pyramid (``FPNFeatures.detection`` is empty)."""
-        c1 = F.relu(self.bn1(self.conv1(x)))
+        detection pyramid (``FPNFeatures.detection`` is empty).  ``train``
+        runs the trunk's BatchNorms on batch statistics and updates their
+        running statistics."""
+        c1 = F.relu(self.bn1(self.conv1(x), train))
         c1 = F.max_pool2d(c1, 3, stride=2, padding=1)
-        c2 = self.layer1(c1)   # stride 4
-        c3 = self.layer2(c2)   # stride 8
-        c4 = self.layer3(c3)   # stride 16
-        c5 = self.layer4(c4)   # stride 32
+        c2 = self._stage("layer1", c1, train)   # stride 4
+        c3 = self._stage("layer2", c2, train)   # stride 8
+        c4 = self._stage("layer3", c3, train)   # stride 16
+        c5 = self._stage("layer4", c4, train)   # stride 32
 
         hw = lambda t: t.shape[2:4]  # noqa: E731
         det: Tuple[torch.Tensor, ...] = ()

@@ -32,6 +32,9 @@ from multiposenet_tpu_torch.models.subnets import (
 )
 
 BLOCK_COUNTS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+# compute dtypes that run under autocast; any other runs in the parameters'
+# own dtype
+REDUCED_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -57,12 +60,12 @@ class PoseNet(nn.Module):
         self.regressionModel = RegressionHead(cfg.num_anchors, cfg.fpn_channels)
         self.classificationModel = ClassificationHead(
             cfg.num_anchors, cfg.num_classes, cfg.fpn_channels)
-        self.prn = PRN(cfg.prn_node_count, cfg.prn_coeff)
+        self.prn = PRN(cfg.prn_node_count, cfg.prn_coeff, cfg.prn_dropout)
         self.eval()
 
     def _autocast(self, x: torch.Tensor):
         return torch.autocast(x.device.type, dtype=self.cfg.compute_dtype,
-                              enabled=self.cfg.compute_dtype != torch.float32)
+                              enabled=self.cfg.compute_dtype in REDUCED_DTYPES)
 
     # ---- parameter init -------------------------------------------------
 
@@ -104,33 +107,44 @@ class PoseNet(nn.Module):
 
     # ---- per-subnet forwards (NHWC in, NHWC out) -------------------------
 
-    def _features(self, img: torch.Tensor, detection: bool = True):
-        return self.fpn(_nhwc_to_nchw(img), detection)
+    def _features(self, img: torch.Tensor, detection: bool = True,
+                  train: bool = False):
+        # the image takes the parameters' dtype (float64 in the parity
+        # tests' exact-arithmetic runs); under autocast that is float32
+        x = _nhwc_to_nchw(img).to(self.fpn.conv1.weight.dtype)
+        return self.fpn(x, detection, train)
 
     def _detect(self, feats) -> Tuple[torch.Tensor, torch.Tensor]:
         reg = torch.cat([self.regressionModel(f) for f in feats.detection], 1)
         cls = torch.cat([self.classificationModel(f) for f in feats.detection], 1)
         return cls, reg
 
-    def keypoint_forward(self, img: torch.Tensor
+    def keypoint_forward(self, img: torch.Tensor, train: bool = False
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(B,H,W,3) -> heatmaps (B,H/4,W/4,18) + 5 saved_for_loss tensors.
-        The detection pyramid is not computed."""
+        The detection pyramid is not computed.  ``train=True`` runs the
+        trunk's BatchNorms on batch statistics and updates their running
+        statistics (the keypoint train step)."""
         with self._autocast(img):
             predict, saved = self.keypoint_head(
-                self._features(img, detection=False).keypoint)
+                self._features(img, detection=False, train=train).keypoint)
         return _nchw_to_nhwc(predict), [_nchw_to_nhwc(s) for s in saved]
 
     def detection_forward(self, img: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B,H,W,3) -> (classification (B,A,C), regression (B,A,4))."""
+        """(B,H,W,3) -> (classification (B,A,C), regression (B,A,4)).
+        BatchNorm always runs on running statistics here, in training too
+        (the reference freezes BN outside the keypoint stage,
+        trainer.py:172-174)."""
         with self._autocast(img):
             return self._detect(self._features(img))
 
-    def prn_forward(self, grid: torch.Tensor) -> torch.Tensor:
-        """(B, gh, gw, 17) -> same-shaped softmax grid."""
+    def prn_forward(self, grid: torch.Tensor, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, gh, gw, 17) -> same-shaped softmax grid; ``train=True``
+        applies dropout with masks drawn from ``generator``."""
         with self._autocast(grid):
-            return self.prn(grid, self.cfg.compute_dtype)
+            return self.prn(grid, self.cfg.compute_dtype, train, generator)
 
     def full_forward(self, img: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -145,12 +159,14 @@ class PoseNet(nn.Module):
         return self.full_forward(img)
 
 
-def build_posenet(cfg: ModelConfig, device: torch.device,
-                  state_dict: Optional[dict] = None, seed: int = 0,
-                  head_output_std: float = 0.0) -> PoseNet:
-    """A PoseNet in eval mode on ``device``: weights from ``state_dict``
-    (loaded strictly) or drawn from ``seed``.  On a CUDA device the model
-    is kept in ``channels_last`` memory format."""
+def build_trainable_posenet(cfg: ModelConfig, device: torch.device,
+                            state_dict: Optional[dict] = None, seed: int = 0,
+                            head_output_std: float = 0.0) -> PoseNet:
+    """A PoseNet on ``device`` with every parameter requiring grad: weights
+    from ``state_dict`` (loaded strictly) or drawn from ``seed``.  On a
+    CUDA device the model is kept in ``channels_last`` memory format.  The
+    train steps pick the stage's trainable subset
+    (engine/train_steps.create_train_state)."""
     model = PoseNet(cfg)
     if state_dict is None:
         model.reset_parameters(torch.Generator().manual_seed(seed),
@@ -160,4 +176,14 @@ def build_posenet(cfg: ModelConfig, device: torch.device,
     model = model.to(device).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    return model.requires_grad_(False)
+    return model
+
+
+def build_posenet(cfg: ModelConfig, device: torch.device,
+                  state_dict: Optional[dict] = None, seed: int = 0,
+                  head_output_std: float = 0.0) -> PoseNet:
+    """The serving model: ``build_trainable_posenet`` in eval mode with
+    every parameter frozen (``requires_grad_(False)``)."""
+    model = build_trainable_posenet(cfg, device, state_dict, seed,
+                                    head_output_std)
+    return model.eval().requires_grad_(False)

@@ -9,7 +9,7 @@ the JAX package and flattens them in (y, x, joint) order.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -105,26 +105,50 @@ class ClassificationHead(nn.Module):
         return _nchw_to_anchors(torch.sigmoid(self.output(x)), self.num_classes)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
+            ) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: keep each value with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate).  The mask is drawn from
+    ``generator`` (on ``x``'s device), which ``F.dropout`` cannot take."""
+    if rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
 class PRN(nn.Module):
     """Pose Residual Network (reference posenet.py:130-152): a residual MLP
     over the flattened (gh, gw, 17) grid with a softmax over the whole
-    vector, taken in at least float32.  Eval only: dropout is the identity.
+    vector, taken in at least float32.  With ``train=True``, dropout at
+    ``rate`` follows ``dens1`` and ``bneck`` (subnets.py:151-153), its
+    masks drawn from ``generator``; otherwise dropout is the identity.
     """
 
-    def __init__(self, node_count: int = 1024, coeff: int = 2):
+    def __init__(self, node_count: int = 1024, coeff: int = 2,
+                 rate: float = 0.5):
         super().__init__()
         self.height, self.width = 28 * coeff, 18 * coeff
+        self.rate = rate
         d = self.height * self.width * 17
         self.dens1 = nn.Linear(d, node_count)
         self.bneck = nn.Linear(node_count, node_count)
         self.dens2 = nn.Linear(node_count, d)
 
-    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+                train: bool = False, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        if train and self.rate > 0.0 and generator is None:
+            raise ValueError("PRN training with dropout needs a generator")
         b = x.shape[0]
         res = x.reshape(b, -1).to(compute_dtype)
         out = F.relu(self.dens1(res))
+        if train:
+            out = dropout(out, self.rate, generator)
         out = F.relu(self.bneck(out))
+        if train:
+            out = dropout(out, self.rate, generator)
         out = F.relu(self.dens2(out))
         out = (out + res).to(torch.promote_types(out.dtype, torch.float32))
         return torch.softmax(out, dim=1).reshape(b, self.height, self.width, 17)
