@@ -59,20 +59,39 @@ Phases (any failure exits non-zero, and no result line is printed):
               the checkpoint, validation and best copy, one timed
               AsyncSaver save; every loss finite, the other stages' groups
               bit-unchanged, and the keypoint loss falling over 3 steps on a
-              fixed batch.
+              fixed batch;
+  8. cli      the port's command line (``cli.main``) on a synthetic COCO
+              tree of PNG files written to a temporary directory (drawn
+              people on 640x480, 480x640 and 640x427 images, polygon, RLE
+              and crowd segmentations, a CMU-style COCO.json, mask2014
+              PNGs): the keypoint and detection datasets timed on one
+              thread and through Loader; then, ResNet-101 throughout,
+              train keypoint (480 px, batch 6, 8 workers), detection (608
+              px, from the keypoint checkpoint) and PRN (from the detection
+              one) for one epoch each, val, coco-eval (bf16, no
+              escalation) with a metrics file, two --eval-shard runs merged
+              by merge-results (equal to the unsharded rows and stats),
+              test on a PNG directory, and merge-results again through a
+              ``python -m multiposenet_tpu_torch.cli`` subprocess; every
+              loss finite, every checkpoint restoring, NMS launched at
+              least once per coco-eval image.
 
 Training reaches no hand-written kernel: the conv stack runs on cuDNN, the
 rest as PyTorch ops.  The weights are random, drawn from a seed; the detection output convs are
 rescaled so that scores and boxes vary between anchors, and the thresholds
 are lowered so that boxes and peaks exist (the eval's peak threshold is set
 from the images' own folded heatmaps; in 6a the heatmap output conv is
-also rescaled per joint, so that every joint has peaks).  The images are made in memory: the
-evaluator takes them through its ``load_image`` argument.  The last two
+also rescaled per joint, so that every joint has peaks).  Through phase
+7 the images are made in memory (the evaluator takes them through its
+``load_image`` argument); phase 8 writes them as PNG files, which the port
+reads without cv2, and raises the output biases of its briefly trained
+model so that its eval has boxes and people to score.  The last two
 lines of standard output are the kernels' JSON line and the result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import json
@@ -1372,6 +1391,455 @@ def full_width_training(card: str, device: str = "cuda", configs=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+
+def write_png(path: str, img: np.ndarray, filters) -> None:
+    """Write a uint8 (H, W) gray or (H, W, 3) BGR image as an 8-bit PNG
+    whose row r is filtered with ``filters[r % len(filters)]`` (0 None,
+    1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    rgb = img[:, :, ::-1] if img.ndim == 3 else img[:, :, None]
+    bpp = rgb.shape[2]
+    x = rgb.reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]                         # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                                   # up
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]                      # up-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    ftype = np.asarray(filters)[np.arange(h) % len(filters)]
+    pred = np.choose(ftype[:, None], [np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    rows = np.concatenate([ftype[:, None], (x - pred) & 255], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             2 if bpp == 3 else 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+# every row filter, Average and Paeth on few rows (they decode byte by byte)
+PNG_FILTERS = (3, 4) + (1, 2, 0) * 300
+# COCO image sizes of the synthetic tree, (h, w)
+SYNTH_SIZES = ((480, 640), (640, 480), (427, 640))
+# a standing figure in units of body height, COCO keypoint order
+SYNTH_BODY = np.array([
+    (0.00, 0.06), (0.03, 0.04), (-0.03, 0.04), (0.055, 0.06), (-0.055, 0.06),
+    (0.11, 0.18), (-0.11, 0.18), (0.17, 0.33), (-0.17, 0.33), (0.20, 0.47),
+    (-0.20, 0.47), (0.07, 0.52), (-0.07, 0.52), (0.09, 0.73), (-0.09, 0.73),
+    (0.09, 0.95), (-0.09, 0.95)])
+SYNTH_LIMBS = ((15, 13), (13, 11), (16, 14), (14, 12), (11, 12), (5, 11),
+               (6, 12), (5, 6), (5, 7), (6, 8), (7, 9), (8, 10), (0, 1),
+               (0, 2), (1, 3), (2, 4))
+
+
+def synth_person(rng: np.random.RandomState, h: int, w: int, tall) -> tuple:
+    """A figure of body height in ``tall`` inside an (h, w) image:
+    (17, 3) keypoints (v = 2, some 1) and its height."""
+    size = rng.uniform(*tall)
+    t = np.deg2rad(rng.uniform(-15, 15))
+    pts = (SYNTH_BODY + rng.uniform(-0.03, 0.03, (17, 2))) * size
+    pts = pts @ np.array([[np.cos(t), -np.sin(t)], [np.sin(t), np.cos(t)]]).T
+    lo, hi = pts.min(0), pts.max(0)
+    pts += [rng.uniform(8 - lo[0], w - 8 - hi[0]), rng.uniform(8 - lo[1], h - 8 - hi[1])]
+    vis = np.where(rng.rand(17) < 0.1, 1.0, 2.0)
+    return np.concatenate([pts, vis[:, None]], axis=1), size
+
+
+def draw_person(img: np.ndarray, kp: np.ndarray, size: float,
+                rng: np.random.RandomState) -> np.ndarray:
+    """Draw limbs as thick segments and joints as discs of fixed colours;
+    returns the figure's silhouette."""
+    h, w = img.shape[:2]
+    shape = np.zeros((h, w), bool)
+
+    def stamp(target, p, q, radius):
+        """Set the pixels of ``target`` within ``radius`` of segment pq."""
+        x0, y0 = np.floor(np.minimum(p, q) - radius).astype(int)
+        x1, y1 = np.ceil(np.maximum(p, q) + radius).astype(int) + 1
+        x0, y0, x1, y1 = max(x0, 0), max(y0, 0), min(x1, w), min(y1, h)
+        ys, xs = np.mgrid[y0:y1, x0:x1]
+        d = q - p
+        t = np.clip(((xs - p[0]) * d[0] + (ys - p[1]) * d[1]) / max(d @ d, 1e-6), 0, 1)
+        hit = (xs - p[0] - t * d[0]) ** 2 + (ys - p[1] - t * d[1]) ** 2 <= radius ** 2
+        target[y0:y1, x0:x1] |= hit
+        return (slice(y0, y1), slice(x0, x1)), hit
+
+    for i, j in SYNTH_LIMBS:
+        stamp(shape, kp[i, :2], kp[j, :2], max(2.0, size / 36))
+    stamp(shape, kp[0, :2], kp[0, :2], 0.055 * size)
+    img[shape] = rng.randint(60, 140, 3)
+    for j in range(17):
+        disc = np.zeros((h, w), bool)
+        win, hit = stamp(disc, kp[j, :2], kp[j, :2], max(2.0, size / 45))
+        img[win][hit] = ((37 * j) % 256, (91 * j + 80) % 256, (53 * j + 160) % 256)
+    return shape
+
+
+def smooth_background(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """A bilinear blend of a random 4 x 4 colour grid plus mild noise."""
+    grid = rng.uniform(30, 225, (4, 4, 3))
+
+    def axis(n):
+        t = np.linspace(0, 3, n)
+        i = np.minimum(t.astype(int), 2)
+        return i, (t - i)[:, None]
+    iy, fy = axis(h)
+    ix, fx = axis(w)
+    rows = grid[:, ix] * (1 - fx)[None] + grid[:, ix + 1] * fx[None]
+    bg = rows[iy] * (1 - fy)[:, :, None] + rows[iy + 1] * fy[:, :, None]
+    return np.clip(bg + rng.normal(0, 6, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def write_synthetic_coco(root: str, n_train: int, n_val: int, seed: int = SEED,
+                         sizes=SYNTH_SIZES, tall=(150.0, 340.0)) -> dict:
+    """A COCO tree in the layout of tools/make_synth_pose_dataset.py with
+    PNG files, written without cv2 (``write_png``): drawn people on smooth
+    backgrounds; per image a CMU-style keypoint record per person in
+    ``COCO.json`` and a ``mask2014`` mask_miss PNG; polygon and RLE
+    (compressed and counts-list) segmentations in
+    ``annotations/person_keypoints_{train,val}2017.json``, with one crowd
+    annotation, whose region mask_miss zeroes.  Returns the counts."""
+    import shutil
+
+    from multiposenet_tpu_torch.data.rle import encode_rle
+
+    rng = np.random.RandomState(seed)
+    for d in ("images/val2017", "mask2014", "annotations", "train2017", "val2017"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    records = []
+    coco = {s: {"images": [], "annotations": []} for s in ("train2017", "val2017")}
+    n_ann = 0
+    for i in range(n_train + n_val):
+        val = i >= n_train
+        split, tag = ("val2017", "val") if val else ("train2017", "train")
+        h, w = sizes[i % len(sizes)]
+        img = smooth_background(rng, h, w)
+        mask_miss = np.full((h, w), 255, np.uint8)
+        people = [synth_person(rng, h, w, tall) for _ in range(1 + i % 3)]
+        stem = f"{i:012d}"
+        coco[split]["images"].append({"id": i, "file_name": f"{stem}.png",
+                                      "width": w, "height": h})
+        for p, (kp, size) in enumerate(people):
+            shape = draw_person(img, kp, size, rng)
+            n_ann += 1
+            x0, y0 = kp[:, :2].min(0) - 4
+            x1, y1 = kp[:, :2].max(0) + 4
+            if p % 2:
+                segm = [[float(x0), float(y0), float(x1), float(y0),
+                         float(x1), float(y1), float(x0), float(y1)]]
+            else:
+                segm = encode_rle(shape.astype(np.uint8))
+            coco[split]["annotations"].append({
+                "id": n_ann, "image_id": i, "category_id": 1, "iscrowd": 0,
+                "num_keypoints": 17, "keypoints": kp.reshape(-1).tolist(),
+                "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                "area": float(shape.sum()), "segmentation": segm})
+        if i == 1:
+            # one crowd region, as an uncompressed RLE; mask_miss zeroes it
+            crowd = np.zeros((h, w), np.uint8)
+            crowd[h // 8: h // 4, w // 8: w // 3] = 1
+            mask_miss[crowd > 0] = 0
+            flat = crowd.T.reshape(-1)
+            runs = np.diff(np.concatenate([[0], np.flatnonzero(np.diff(flat)) + 1,
+                                           [flat.size]])).tolist()
+            n_ann += 1
+            coco[split]["annotations"].append({
+                "id": n_ann, "image_id": i, "category_id": 1, "iscrowd": 1,
+                "num_keypoints": 0, "keypoints": [0] * 51,
+                "bbox": [w / 8, h / 8, w / 3 - w / 8, h / 4 - h / 8],
+                "area": float(crowd.sum()),
+                "segmentation": {"size": [h, w], "counts": runs}})
+        kp_name = f"COCO_{tag}2014_{stem}.png"
+        write_png(os.path.join(root, "images", kp_name), img, PNG_FILTERS)
+        write_png(os.path.join(root, "mask2014", f"{tag}2014_mask_miss_{stem}.png"),
+                  mask_miss, PNG_FILTERS)
+        for d in [split] + (["images/val2017"] if val else []):
+            shutil.copyfile(os.path.join(root, "images", kp_name),
+                            os.path.join(root, d, f"{stem}.png"))
+        # the CMU index flips visibility: 1 visible, 0 occluded, 2 missing
+        cmu = [np.concatenate([k[:, :2], np.where(k[:, 2:] == 2, 1.0, 0.0)], 1)
+               for k, _ in people]
+        for p, (kp, size) in enumerate(people):
+            lo, hi = kp[:, :2].min(0), kp[:, :2].max(0)
+            others = [cmu[q].tolist() for q in range(len(people)) if q != p]
+            records.append({
+                "dataset": "COCO_val" if val else "COCO",
+                "isValidation": float(val), "img_paths": kp_name,
+                "img_width": float(w), "img_height": float(h), "image_id": i,
+                "objpos": ((lo + hi) / 2).tolist(),
+                "scale_provided": float(size / 368.0),
+                "joint_self": cmu[p].tolist(), "joint_others": others,
+                "numOtherPeople": float(len(others))})
+    with open(os.path.join(root, "COCO.json"), "w") as f:
+        json.dump({"root": records}, f)
+    cat = {"id": 1, "name": "person", "supercategory": "person"}
+    for split, d in coco.items():
+        with open(os.path.join(root, "annotations",
+                               f"person_keypoints_{split}.json"), "w") as f:
+            json.dump({**d, "categories": [cat]}, f)
+    return {"images": n_train + n_val, "val_images": n_val,
+            "records": len(records),
+            "train_records": sum(r["isValidation"] == 0.0 for r in records),
+            "val_records": sum(r["isValidation"] != 0.0 for r in records),
+            "annotations": n_ann}
+
+
+def time_dataset(ds, n: int, workers: int, batch: int) -> tuple:
+    """ms per sample of ``ds``: ``n`` samples on this thread, then one epoch
+    of batches through ``Loader`` with ``workers`` threads (its start
+    included)."""
+    from multiposenet_tpu_torch.data.loader import Loader
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds.__getitem__(i % len(ds), rng=rng)
+    one = (time.perf_counter() - t0) * 1e3 / n
+    loader = Loader(ds, batch, shuffle=True, num_workers=workers, seed=SEED)
+    t0 = time.perf_counter()
+    got = sum(len(b["image"]) for b in loader)
+    return one, (time.perf_counter() - t0) * 1e3 / got
+
+
+def raise_output_biases(ckpt: str, out: str, cls_bias: float = 3.0,
+                        heat_bias: float = 0.3) -> str:
+    """A copy of checkpoint ``ckpt``'s model state with the classifier and
+    heatmap output biases raised, so that a briefly trained model's
+    detections pass the test threshold and its heatmaps hold peaks above
+    thre1: the eval then has boxes and people to group and score."""
+    from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
+
+    sd = ckpt_lib.load_checkpoint(ckpt)["model"]
+    sd["classificationModel.output.bias"] = torch.full_like(
+        sd["classificationModel.output.bias"], cls_bias)
+    sd["convfin.bias"] = sd["convfin.bias"] + heat_bias
+    os.makedirs(out, exist_ok=True)
+    torch.save({"model": sd}, os.path.join(out, ckpt_lib.STATE_FILE))
+    return out
+
+
+def cli_phase(card: str, device: str = "cuda", backbone: str = "resnet101",
+              sizes=SYNTH_SIZES, n_train: int = 24, n_val: int = 12,
+              kp_size: int = 480, det_size: int = 608, kp_batch: int = 6,
+              workers: int = 8, tall=(150.0, 340.0)) -> dict:
+    """Phase 8: the port's CLI in process (``cli.main``) on a synthetic
+    COCO tree of PNG files: train keypoint, detection (from the keypoint
+    checkpoint) and PRN (from the detection one), val, coco-eval, the two
+    shards and merge-results, test; one command through a real ``python -m
+    multiposenet_tpu_torch.cli`` subprocess.  Checks every loss finite,
+    every checkpoint restoring, the 10 stats, merged equal to unsharded and
+    K1 launched on every coco-eval image; times the datasets and the
+    keypoint stage's data wait per step against its step time."""
+    import shutil
+    import tempfile
+
+    from multiposenet_tpu_torch import cli
+    from multiposenet_tpu_torch.config import ModelConfig
+    from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
+    from multiposenet_tpu_torch.engine import trainer as trainer_mod
+    from multiposenet_tpu_torch.models.posenet import PoseNet
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mpn_cli_smoke_")
+    coco, save = os.path.join(root, "coco"), os.path.join(root, "models")
+    saved_env = os.environ.get("MPN_PLATFORM")
+    saved_bench = torch.backends.cudnn.benchmark
+    if device == "cpu":
+        os.environ["MPN_PLATFORM"] = "cpu"
+    records, walls = {}, {}
+    base_trainer = trainer_mod.Trainer
+
+    class RecordingTrainer(base_trainer):
+        """Records every step's loss, host wait for data and step span."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec = records.setdefault(self.subnet, {"losses": [], "waits": [],
+                                                   "events": []})
+            step = self.train_step
+
+            def timed(state, batch, *args):
+                rec["waits"].append(self.data_timer.duration)
+                ev = None
+                if self.device.type == "cuda":
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                out = step(state, batch, *args)
+                if ev is not None:
+                    ev[1].record()
+                    rec["events"].append(ev)
+                rec["losses"].append(out[1]["loss"])
+                return out
+            self.train_step = timed
+
+    def run(name: str, argv):
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def read_json(path):
+        with open(path) as f:
+            return json.load(f)
+
+    try:
+        tree = write_synthetic_coco(coco, n_train, n_val, sizes=sizes, tall=tall)
+        common = ["--coco-root", coco, "--backbone", backbone, "--save-dir", save,
+                  "--num-workers", str(workers)]
+        # the detection batch: the reference's 25, cut to the records of the
+        # smaller split, so that validation has a whole batch
+        det_batch = min(25, tree["val_records"])
+        log(f"cli: synthetic COCO tree {tree} in {time.perf_counter() - t_phase:.1f} s; "
+            f"detection batch {det_batch} (the reference's 25 cut to the "
+            f"{tree['val_records']} validation records)")
+
+        # both datasets in batches of the keypoint stage's size, so that the
+        # Loader's epoch keeps every worker busy
+        data_ms = {}
+        for subnet, size in (("keypoint", kp_size), ("detection", det_size)):
+            args = argparse.Namespace(
+                backbone=backbone, coco_root=coco, ckpt=None, exp_name=None,
+                inp_size=size, batch_size=kp_batch, lr=None, max_epoch=None,
+                num_workers=workers, save_dir=save, bf16=False)
+            ds = cli.make_loaders(cli.build_config(args, subnet), subnet, True).dataset
+            data_ms[subnet] = time_dataset(ds, 2 * kp_batch, workers, kp_batch)
+        log(f"cli: dataset ms per sample at batch {kp_batch} (this host, one "
+            f"thread / an epoch through Loader with {workers} workers): "
+            + "; ".join(f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in data_ms.items())
+            + f" [{card}]")
+
+        trainer_mod.Trainer = RecordingTrainer
+        stages = (("keypoint", kp_size, kp_batch, None),
+                  ("detection", det_size, det_batch, "keypoint"),
+                  ("prn", None, 8, "detection"))
+        ckpts = {}
+        for subnet, size, batch, init in stages:
+            argv = ["train", "--subnet", subnet, *common, "--exp-name", subnet,
+                    "--batch-size", str(batch), "--max-epoch", "1"]
+            if size:
+                argv += ["--inp-size", str(size)]
+            if init:
+                argv += ["--init-params", ckpts[init]]
+            run(f"train {subnet}", argv)
+            ckpts[subnet] = ckpt_lib.latest_checkpoint(os.path.join(save, subnet))
+            loss = torch.stack([x.float() for x in records[subnet]["losses"]]).cpu()
+            if not torch.isfinite(loss).all():
+                raise AssertionError(f"cli train {subnet}: a non-finite loss {loss}")
+            template = PoseNet(ModelConfig(backbone=backbone)).state_dict()
+            _, stats = ckpt_lib.restore_model_state_partial(ckpts[subnet], template)
+            if stats["missing"] or stats["shape_skipped"]:
+                raise AssertionError(f"{ckpts[subnet]} does not restore: {stats}")
+        trainer_mod.Trainer = base_trainer
+
+        # the first steps wait for the loader's start and cuDNN's autotuning
+        kp = records["keypoint"]
+        n_steps = ", ".join(f"{k} {len(v['losses'])} steps" for k, v in records.items())
+        waits = np.array(kp["waits"]) * 1e3
+        steps = np.array([s.elapsed_time(e) for s, e in kp["events"]])
+        later = slice(2, None) if len(waits) > 2 else slice(None)
+        log(f"cli train: {backbone} keypoint {kp_size} px batch {kp_batch}, "
+            f"detection {det_size} px batch {det_batch}, PRN batch 8, 1 epoch "
+            f"each ({n_steps}); every loss finite, every checkpoint restores; "
+            f"keypoint data wait per step (ms) {np.round(waits, 1).tolist()} "
+            f"against ms per step between CUDA events "
+            f"{np.round(steps, 1).tolist()}: after the first two steps, "
+            f"median wait {np.median(waits[later]):.1f} ms, median step "
+            + (f"{np.median(steps[later]):.1f} ms" if steps.size else "not timed")
+            + f" [{card}]")
+
+        # one convolution algorithm per shape from here on, so that the
+        # shards and the unsharded eval compute the same numbers
+        torch.backends.cudnn.benchmark = False
+        val_loss = run("val", ["val", "--subnet", "keypoint", *common, "--exp-name",
+                               "keypoint", "--inp-size", str(kp_size), "--batch-size",
+                               str(kp_batch), "--max-batches", "2", "--ckpt",
+                               ckpts["keypoint"]])
+        if not np.isfinite(val_loss):
+            raise AssertionError(f"cli val: loss {val_loss}")
+
+        # bf16 activations, as a deployment evaluates; the random model's
+        # heatmaps are flat above the raised bias and fill every joint's peak
+        # slots, so escalation would re-dispatch each image at 128 peaks and
+        # 256 people, several seconds each
+        eval_ckpt = raise_output_biases(ckpts["prn"], os.path.join(root, "eval_ckpt"))
+        ev_args = ["--coco-root", coco, "--backbone", backbone, "--ckpt", eval_ckpt,
+                   "--inp-size", str(kp_size), "--bf16", "--no-escalate"]
+        metrics_file = os.path.join(root, "metrics.json")
+        result_file = os.path.join(root, "results.json")
+        cuda_nms.launches = 0
+        metrics = run("coco-eval", ["coco-eval", *ev_args, "--metrics-file",
+                                    metrics_file, "--result-file", result_file])
+        launches = cuda_nms.launches
+        if len(metrics) != 10 or read_json(metrics_file) != metrics:
+            raise AssertionError(f"cli coco-eval: {metrics}, metrics file "
+                                 f"{read_json(metrics_file)}")
+        if device == "cuda" and launches < tree["val_images"]:
+            raise AssertionError(f"cli coco-eval launched K1 {launches} times "
+                                 f"for {tree['val_images']} images")
+        shards = [os.path.join(root, f"shard{i}.json") for i in range(2)]
+        for i, path in enumerate(shards):
+            run(f"coco-eval {i}:2", ["coco-eval", *ev_args, "--eval-shard", f"{i}:2",
+                                     "--result-file", path])
+        merged_file = os.path.join(root, "merged.json")
+        merged = run("merge-results", ["merge-results", *shards, "--coco-root", coco,
+                                       "--out", merged_file])
+        key = lambda r: (r["image_id"], -r["score"], r["keypoints"])  # noqa: E731
+        unsharded = sorted(read_json(result_file), key=key)
+        if merged != metrics or sorted(read_json(merged_file), key=key) != unsharded:
+            raise AssertionError(f"merged shards {merged} != unsharded {metrics}, "
+                                 "or their result rows differ")
+        results = run("test", ["test", *ev_args[:-1], "--testdata",
+                               os.path.join(coco, "images", "val2017"),
+                               "--testresult", os.path.join(root, "test_out")])
+        if len(read_json(os.path.join(root, "test_out",
+                                      "multipose_results.json"))) != len(results):
+            raise AssertionError("cli test: result JSON disagrees")
+
+        t0 = time.perf_counter()
+        again = os.path.join(root, "merged_again.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "multiposenet_tpu_torch.cli", "merge-results",
+             *shards, "--coco-root", coco, "--out", again],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+            text=True, timeout=300)
+        if proc.returncode != 0 or read_json(again) != read_json(merged_file):
+            raise AssertionError(f"python -m multiposenet_tpu_torch.cli merge-results "
+                                 f"failed ({proc.returncode}): {proc.stderr[-2000:]}")
+        walls["python -m merge-results"] = time.perf_counter() - t0
+        wall = time.perf_counter() - t_phase
+        log(f"cli eval: val loss {val_loss:.6f}; coco-eval over {tree['val_images']} "
+            f"images, {len(unsharded)} result rows, AP {metrics['AP']:.4f}, 10 stats "
+            f"in the metrics file, K1 launched {launches} times; shards 0:2 + 1:2 "
+            f"merged equal the unsharded rows and stats; test: {len(results)} "
+            f"people; wall per command (s): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+            + f"; phase wall {wall:.1f} s [{card}]")
+        return {"launches": launches, "data_ms": data_ms, "wall_s": wall,
+                "walls": walls, "kp_waits_ms": waits.tolist(),
+                "kp_steps_ms": steps.tolist(), "metrics": metrics}
+    finally:
+        trainer_mod.Trainer = base_trainer
+        torch.backends.cudnn.benchmark = saved_bench
+        if saved_env is None:
+            os.environ.pop("MPN_PLATFORM", None)
+        else:
+            os.environ["MPN_PLATFORM"] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1524,16 +1992,20 @@ def main() -> int:
     check_training_against_cpu()
     full_width_training(card)
 
+    # ---- 8. the CLI on a synthetic COCO tree of PNG files ---------------------
+    cli = cli_phase(card)
+
     kernels = [{
         "name": "nms_suppress",
         "route": "cuda",
         "source": "multiposenet_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "multiposenet_tpu/ops/pallas_nms.py:33",
         "tpu_kernel": "multiposenet_tpu/ops/pallas_nms.py::_nms_suppress_kernel",
-        "launches": launches["nms_suppress"] + full_eval["launches"],
+        "launches": launches["nms_suppress"] + full_eval["launches"] + cli["launches"],
         "launches_by_path": {"serving": launches["nms_suppress"],
                              "coco_eval": full_eval["launches"],
-                             "coco_eval_check": eval_check["launches"]},
+                             "coco_eval_check": eval_check["launches"],
+                             "cli_coco_eval": cli["launches"]},
         "max_abs_err": max(max_err, full_eval["max_abs_err"]),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,

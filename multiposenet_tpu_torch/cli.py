@@ -1,0 +1,308 @@
+"""Command-line interface of the port — the counterpart of
+``python -m multiposenet_tpu.cli`` for one process on one GPU.
+
+  python -m multiposenet_tpu_torch.cli train --subnet keypoint --coco-root /data/COCO
+  python -m multiposenet_tpu_torch.cli val --subnet detection --ckpt <dir>
+  python -m multiposenet_tpu_torch.cli test --ckpt <dir> --testdata ./demo/test_images
+  python -m multiposenet_tpu_torch.cli coco-eval --ckpt <dir> --coco-root /data/COCO
+  python -m multiposenet_tpu_torch.cli merge-results shard0.json shard1.json
+
+Every command runs on the CUDA GPU; ``MPN_PLATFORM=cpu`` asks for the CPU
+(the plain PyTorch twins of the kernels), as the JAX CLI's variable pins its
+backend.  Without a GPU and without that request a command raises.
+Checkpoints are the port's own directories (engine/checkpoint.py); ``--ckpt``
+and ``--init-params`` load the model state partially, BatchNorm statistics
+included.  ``main`` returns the command's result (the stats of ``coco-eval``
+and ``merge-results``), so that it can also be called in process.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+
+def _common(p: argparse.ArgumentParser):
+    p.add_argument("--backbone", default="resnet101",
+                   choices=["resnet50", "resnet101"])
+    p.add_argument("--coco-root", default="/data/COCO/")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint directory (engine/checkpoint.py) to load")
+    p.add_argument("--exp-name", default=None)
+    p.add_argument("--inp-size", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--max-epoch", type=int, default=None)
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--save-dir", default="./extra/models")
+    p.add_argument("--bf16", action="store_true",
+                   help="run conv/matmul activations in bfloat16 (autocast; "
+                        "parameters stay float32)")
+
+
+def resolve_cli_device():
+    """CUDA unless ``MPN_PLATFORM=cpu``; raises without a GPU."""
+    import torch
+
+    from multiposenet_tpu_torch.config import resolve_device
+    plat = os.environ.get("MPN_PLATFORM", "").strip().lower()
+    if plat == "cpu":
+        return torch.device("cpu")
+    if plat not in ("", "cuda", "gpu"):
+        raise ValueError(f"MPN_PLATFORM={plat!r}: expected 'cpu' or 'cuda'")
+    return resolve_device("cuda")
+
+
+def build_config(args, subnet: str):
+    import torch
+
+    from multiposenet_tpu_torch.config import (
+        Config, detection_train_config, keypoint_train_config,
+        prn_train_config)
+    cfg = {"keypoint": keypoint_train_config,
+           "detection": detection_train_config,
+           "prn": prn_train_config}.get(subnet, Config)()
+    model = dataclasses.replace(cfg.model, backbone=args.backbone)
+    if getattr(args, "bf16", False):
+        model = dataclasses.replace(model, compute_dtype=torch.bfloat16)
+    data = dataclasses.replace(
+        cfg.data, coco_root=args.coco_root,
+        json_path=os.path.join(args.coco_root, "COCO.json"),
+        mask_dir=args.coco_root, num_workers=args.num_workers,
+        **({"inp_size": args.inp_size} if args.inp_size else {}))
+    tr = {}
+    if args.exp_name:
+        tr["exp_name"] = args.exp_name
+    if args.batch_size:
+        tr["batch_size"] = args.batch_size
+    if args.lr:
+        tr["init_lr"] = args.lr
+    if args.max_epoch:
+        tr["max_epoch"] = args.max_epoch
+    tr["save_dir"] = args.save_dir
+    tr["ckpt"] = args.ckpt
+    train = dataclasses.replace(cfg.train, subnet=subnet or cfg.train.subnet,
+                                **tr)
+    # --inp-size also sets the eval base size (reference TestParams.inp_size,
+    # tester.py:87: the multi-scale search scales off it)
+    ev = (dataclasses.replace(cfg.eval, inp_size=args.inp_size)
+          if args.inp_size else cfg.eval)
+    return dataclasses.replace(cfg, model=model, data=data, train=train,
+                               eval=ev)
+
+
+def make_loaders(cfg, subnet: str, training: bool):
+    from multiposenet_tpu_torch.data.coco_json import COCOIndex
+    from multiposenet_tpu_torch.data.datasets import (
+        DetectionDataset, KeypointDataset, PRNDataset,
+        load_coco_json_index, split_keypoint_records)
+    from multiposenet_tpu_torch.data.loader import Loader
+
+    split = "train2017" if training else "val2017"
+    ann = os.path.join(cfg.data.coco_root, "annotations",
+                       f"person_keypoints_{split}.json")
+    if subnet == "keypoint":
+        records = load_coco_json_index(cfg.data.json_path)
+        idx = split_keypoint_records(records, training)
+        ds = KeypointDataset(records, idx, os.path.join(cfg.data.coco_root, "images"),
+                             cfg.data.mask_dir, cfg.data, augment=training)
+    elif subnet == "detection":
+        coco = COCOIndex(ann)
+        records = load_coco_json_index(cfg.data.json_path)
+        img_ids = set(coco.get_img_ids())
+        idx = [i for i, r in enumerate(records)
+               if int(r["image_id"]) in img_ids]
+        ds = DetectionDataset(records, idx, coco,
+                              os.path.join(cfg.data.coco_root, split),
+                              cfg.data, augment=training)
+    else:  # prn
+        ds = PRNDataset(COCOIndex(ann), cfg)
+    return Loader(ds, cfg.train.batch_size, shuffle=training,
+                  num_workers=cfg.data.num_workers)
+
+
+def cmd_train(args):
+    from multiposenet_tpu_torch.engine.trainer import Trainer
+    device = resolve_cli_device()
+    cfg = build_config(args, args.subnet)
+    train = make_loaders(cfg, args.subnet, True)
+    val = make_loaders(cfg, args.subnet, False)
+    Trainer(cfg, train_data=train, val_data=val,
+            init_ckpt_params=args.init_params, device=device).train()
+
+
+def cmd_val(args):
+    from multiposenet_tpu_torch.engine.trainer import Trainer
+    device = resolve_cli_device()
+    cfg = build_config(args, args.subnet)
+    val = make_loaders(cfg, args.subnet, False)
+    return Trainer(cfg, train_data=None, val_data=val,
+                   device=device).validate(args.max_batches)
+
+
+def _load_eval(args, subnet="keypoint"):
+    from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
+    from multiposenet_tpu_torch.engine.evaluator import Evaluator
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+
+    device = resolve_cli_device()
+    cfg = build_config(args, subnet)
+    model = build_posenet(cfg.model, device, seed=0)
+    if args.ckpt:
+        # the whole model state: weights AND BN running statistics
+        # (reference load_net, net_utils.py:69-110)
+        sd, _ = ckpt_lib.restore_model_state_partial(args.ckpt, model.state_dict())
+        model.load_state_dict(sd)
+    return cfg, Evaluator(cfg, device=device, model=model)
+
+
+def cmd_test(args):
+    # validate inputs before the (slow) model build
+    if not os.path.isdir(args.testdata):
+        sys.exit(f"error: --testdata directory not found: {args.testdata}")
+    _, ev = _load_eval(args)
+    ev.cfg = dataclasses.replace(
+        ev.cfg, eval=dataclasses.replace(ev.cfg.eval, write_json=True,
+                                         testdata_dir=args.testdata,
+                                         testresult_dir=args.testresult))
+    results = ev.test()
+    print(f"{len(results)} person instances detected")
+    return results
+
+
+def _apply_eval_flags(ev, args):
+    peaks_up, prn_up = {}, {}
+    if args.max_peaks is not None:
+        peaks_up["max_peaks_per_joint"] = args.max_peaks
+    if args.max_people is not None:
+        prn_up["max_people"] = args.max_people
+    if args.no_escalate:
+        peaks_up["escalate_max_peaks"] = 0
+        prn_up["escalate_max_people"] = 0
+    if args.no_refine:
+        peaks_up["refine"] = False
+    if peaks_up:
+        ev.cfg = dataclasses.replace(
+            ev.cfg, peaks=dataclasses.replace(ev.cfg.peaks, **peaks_up))
+    if prn_up:
+        ev.cfg = dataclasses.replace(
+            ev.cfg, prn=dataclasses.replace(ev.cfg.prn, **prn_up))
+
+
+def cmd_coco_eval(args):
+    ann = os.path.join(args.coco_root, "annotations/person_keypoints_val2017.json")
+    if not os.path.isfile(ann):
+        sys.exit(f"error: annotations not found: {ann}")
+    shard = (0, 1)
+    if args.eval_shard:
+        i, n = args.eval_shard.split(":")
+        shard = (int(i), int(n))
+        if not (0 <= shard[0] < shard[1]):
+            sys.exit(f"error: bad --eval-shard {args.eval_shard}")
+        if shard[1] > 1 and not args.result_file:
+            sys.exit("error: --eval-shard requires --result-file "
+                     "(merge shards with `cli merge-results`)")
+    _, ev = _load_eval(args)
+    _apply_eval_flags(ev, args)
+    metrics = ev.coco_eval(max_images=args.max_images,
+                           result_file=args.result_file, bucket=args.bucket,
+                           shard=shard, skip_metrics=shard != (0, 1))
+    if args.metrics_file and shard == (0, 1):
+        # written whenever asked (an empty dict when nothing was detected),
+        # so that a reader finds a definite verdict, not a missing file
+        with open(args.metrics_file, "w") as f:
+            json.dump(metrics, f, indent=2)
+    return metrics
+
+
+def cmd_merge_results(args):
+    """Concatenate per-shard result files and run the OKS evaluation."""
+    from multiposenet_tpu_torch.data.coco_json import COCOIndex
+    from multiposenet_tpu_torch.eval.cocoeval import KeypointEval
+
+    results = []
+    for path in args.results:
+        with open(path) as f:
+            results.extend(json.load(f))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(results, f)
+    ann = os.path.join(args.coco_root,
+                       "annotations/person_keypoints_val2017.json")
+    gt = COCOIndex(ann)
+    img_ids = gt.get_img_ids(cat_ids=[1])
+    if args.max_images:
+        img_ids = img_ids[:args.max_images]
+    ev = KeypointEval(gt, gt.load_res(results), img_ids=img_ids)
+    metrics = ev.evaluate()
+    print(ev.summarize())
+    return metrics
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("multiposenet_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pt = sub.add_parser("train")
+    _common(pt)
+    pt.add_argument("--subnet", required=True,
+                    choices=["keypoint", "detection", "prn"])
+    pt.add_argument("--init-params", default=None,
+                    help="another stage's checkpoint to start from (weights "
+                         "and BN statistics)")
+    pt.set_defaults(fn=cmd_train)
+
+    pv = sub.add_parser("val")
+    _common(pv)
+    pv.add_argument("--subnet", required=True,
+                    choices=["keypoint", "detection", "prn"])
+    pv.add_argument("--max-batches", type=int, default=1000000)
+    pv.set_defaults(fn=cmd_val)
+
+    pd = sub.add_parser("test")
+    _common(pd)
+    pd.add_argument("--testdata", default="./demo/test_images/")
+    pd.add_argument("--testresult", default="./demo/output/")
+    pd.set_defaults(fn=cmd_test)
+
+    pc = sub.add_parser("coco-eval")
+    _common(pc)
+    pc.add_argument("--max-images", type=int, default=None)
+    pc.add_argument("--result-file", default=None)
+    pc.add_argument("--metrics-file", default=None,
+                    help="write the 10-stat AP/AR summary as JSON")
+    pc.add_argument("--bucket", type=int, default=64,
+                    help="shape-bucketing granularity of the padded scales")
+    pc.add_argument("--max-peaks", type=int, default=None,
+                    help="base per-joint peak capacity "
+                         "(cfg.peaks.max_peaks_per_joint)")
+    pc.add_argument("--max-people", type=int, default=None,
+                    help="base PRN person capacity (cfg.prn.max_people)")
+    pc.add_argument("--no-escalate", action="store_true",
+                    help="disable crowd-capacity escalation (saturated "
+                         "images truncate with a warning instead of "
+                         "re-dispatching at the escalated tier)")
+    pc.add_argument("--no-refine", action="store_true",
+                    help="disable sub-pixel peak refinement (cfg.peaks.refine)")
+    pc.add_argument("--eval-shard", default=None, metavar="I:N",
+                    help="process only image slice i::n (then `cli "
+                         "merge-results`)")
+    pc.set_defaults(fn=cmd_coco_eval)
+
+    pm = sub.add_parser("merge-results")
+    pm.add_argument("results", nargs="+",
+                    help="per-shard result json files from coco-eval")
+    pm.add_argument("--coco-root", default="/data/COCO/")
+    pm.add_argument("--max-images", type=int, default=None)
+    pm.add_argument("--out", default=None, help="write merged json here")
+    pm.set_defaults(fn=cmd_merge_results)
+
+    args = p.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -111,12 +111,25 @@ class PRNConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    """COCO data pipeline (reference datasets/coco.py, coco_data/*)."""
+
     coco_root: str = "/data/COCO/"
+    json_path: str = ""             # COCO.json keypoint index (CMU preprocessing)
+    mask_dir: str = ""              # holds mask2014/{train,val}2014_mask_miss_*.png
     inp_size: int = 480             # training input: keypoint 480 / detection 608
     feat_stride: int = 4            # heatmap stride: peaks scale by it
+    # augmentation (reference COCO_data_pipeline.py:25-40)
+    scale_min: float = 0.8
+    scale_max: float = 1.2
+    scale_prob: float = 1.0
+    target_dist: float = 0.6
+    max_rotate_degree: float = 40.0
+    center_perturb_max: float = 40.0
+    flip_prob: float = 0.3
     sigma: float = 7.0              # heatmap target gaussian
     max_gt_boxes: int = 64          # padded GT box capacity (pad rows are -1)
     max_people: int = 32            # padded person capacity of the joint targets
+    num_workers: int = 8            # data.loader.Loader worker threads
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,8 +18,8 @@ is dispatched again at ``cfg.peaks.escalate_max_peaks``; a crowd beyond the
 base PRN capacity is grouped at the escalated (peaks, people) tier.
 
 Images come from ``load_image(file_name) -> (H, W, 3) uint8 BGR`` (or None
-for an unreadable file); the default, ``read_image_bgr``, reads from the
-image directory with cv2, which it imports when called.
+for a missing file); the default, ``read_image_bgr``, reads from the image
+directory with ``data/image_io.read_image`` (PNG without cv2).
 
 ``coco_eval`` overlaps images: the calling thread loads and dispatches image
 n + 1 while one worker thread fetches image n's peaks and boxes, groups its
@@ -44,6 +44,7 @@ import torch
 
 from multiposenet_tpu_torch.config import Config, PeakConfig, resolve_device
 from multiposenet_tpu_torch.data.coco_json import COCOIndex
+from multiposenet_tpu_torch.data.image_io import read_image
 from multiposenet_tpu_torch.engine.inference import (
     FullPipeline,
     PRNPipeline,
@@ -199,14 +200,13 @@ def fold_peaks(hms, mats, h: int, w: int, with_flip: bool, inv_n: float,
 
 def read_image_bgr(directory: str, file_name: str) -> Optional[np.ndarray]:
     """``cv2.imread(directory/file_name)``: (H, W, 3) uint8 BGR, or None
-    when the file cannot be read."""
+    when there is no such file (``data/image_io.read_image``: PNG without
+    cv2, other formats through cv2)."""
     try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            "reading image files needs cv2, which is not installed: pass "
-            "load_image(file_name) -> (H, W, 3) uint8 BGR array") from e
-    return cv2.imread(os.path.join(directory, file_name))
+        return read_image(os.path.join(directory, file_name))
+    except RuntimeError as e:
+        raise RuntimeError(f"{e}; or pass load_image(file_name) -> (H, W, 3) "
+                           "uint8 BGR array") from None
 
 
 class StageTimes:

@@ -23,14 +23,15 @@ import numpy as np
 _A = -0.75  # cv2's bicubic coefficient (modules/imgproc/src/resize.cpp)
 
 
-def _cubic_weights(t: float) -> np.ndarray:
-    """cv2 interpolateCubic: weights of the 4 taps at fractional offset t."""
-    w = np.empty(4, np.float64)
-    w[0] = ((_A * (t + 1) - 5 * _A) * (t + 1) + 8 * _A) * (t + 1) - 4 * _A
-    w[1] = ((_A + 2) * t - (_A + 3)) * t * t + 1
-    w[2] = ((_A + 2) * (1 - t) - (_A + 3)) * (1 - t) * (1 - t) + 1
-    w[3] = 1.0 - w[0] - w[1] - w[2]
-    return w
+def _cubic_weights(t, axis: int = -1) -> np.ndarray:
+    """cv2 interpolateCubic in float64: the weights of the 4 taps at
+    fractional offset(s) ``t``, stacked along ``axis`` (last: shape
+    ``t.shape + (4,)``)."""
+    t = np.asarray(t, np.float64)
+    w0 = ((_A * (t + 1) - 5 * _A) * (t + 1) + 8 * _A) * (t + 1) - 4 * _A
+    w1 = ((_A + 2) * t - (_A + 3)) * t * t + 1
+    w2 = ((_A + 2) * (1 - t) - (_A + 3)) * (1 - t) * (1 - t) + 1
+    return np.stack([w0, w1, w2, 1.0 - w0 - w1 - w2], axis=axis)
 
 
 @functools.lru_cache(maxsize=256)

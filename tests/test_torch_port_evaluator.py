@@ -281,10 +281,15 @@ def test_evaluator_runs_on_the_gpu_unless_asked(weights):
     assert Evaluator(port_config(SIZE), model=tm, device="cpu").device.type == "cpu"
 
 
-def test_reading_images_without_cv2_names_load_image(monkeypatch):
+def test_reading_images_without_cv2_names_load_image(monkeypatch, tmp_path):
+    """Without cv2 the evaluator's reader still reads PNG files
+    (data/image_io); any other format raises, naming the file and
+    ``load_image``."""
+    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0not a decodable jpeg")
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="load_image"):
-        teval.read_image_bgr(".", "x.png")
+    with pytest.raises(RuntimeError, match="x.jpg.*load_image"):
+        teval.read_image_bgr(str(tmp_path), "x.jpg")
+    assert teval.read_image_bgr(str(tmp_path), "missing.png") is None
 
 
 def test_eval_modules_import_nothing_of_jax():
