@@ -27,6 +27,21 @@ Phases (any failure exits non-zero, and no result line is printed):
               before and must have grown just after;
   5. e2e      the pipeline at bench.py's configuration (batch 64, 480 px,
               bf16, max_people 20) timed with CUDA events;
+  5b. deploy  BN folding, export and the bench on the serving model: the
+              folded forward (fold_bn_state_dict, the fold_bn=True graph)
+              against the unfolded one in bf16, within 3 times bf16's own
+              error against float32, both timed at batch 64 with CUDA
+              events and profiled; the folded serving pipeline exported
+              (torch.export, K1 as the operator mpn::nms_suppress) at batch
+              16, saved, loaded, and served through
+              BatchPredictor.from_exported on phase 4's 40 images, person
+              rows equal to a live folded predictor's (deterministic cuDNN
+              on both), K1 launched at least once per batch through the
+              program; a program exported on the CPU (resnet50, 96 px)
+              loaded onto the card, launching K1 there and equal to the
+              live CUDA pipeline; then ``python -m
+              multiposenet_tpu_torch.bench`` once at its defaults, its JSON
+              line printed as a log line;
   6a. eval check  the multi-scale COCO evaluator on the card against the
               same evaluator on the CPU (plain twins) on 2 small images: the
               CPU run is fed the card's forward outputs for the same pyramid
@@ -93,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import os
@@ -557,6 +573,212 @@ def check_against_cpu() -> None:
         raise AssertionError("the small reference input grouped nobody")
     log(f"check: CUDA pipeline == CPU pipeline on 4 x {size} px resnet50 f32 "
         f"({n} people, {int(out_c.detections.keep.sum())} boxes kept)")
+
+
+# ---------------------------------------------------------------- phase 5b
+
+# bound on the folded bf16 forward's error against the unfolded bf16 one,
+# in units of the unfolded bf16 forward's own error against float32: both
+# bf16 forwards round at every layer, at other places, so their difference
+# may reach the sum of two such errors, and a maximum over millions of
+# values is noisy
+FOLD_REL_TOL = 3.0
+
+
+def max_rel_err(got, want) -> float:
+    """max |got - want| over the largest |want|, in float32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN picks the same algorithm for the same convolution, so that two
+    runs of one computation (a live pipeline, its exported program) are
+    bit-comparable; the previous settings come back after."""
+    prev = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = prev
+
+
+def device_move_check(card: str) -> int:
+    """A program exported on the CPU (resnet50, 96 px, bf16) runs on the card
+    after ``load_pose_pipeline(..., device="cuda")``: it launches K1 there
+    and equals the live CUDA pipeline of the same weights.  Returns K1's
+    launches through the program."""
+    from multiposenet_tpu_torch.config import Config, EvalConfig, ModelConfig
+    from multiposenet_tpu_torch.engine.export_model import (
+        export_pose_pipeline, load_pose_pipeline)
+    from multiposenet_tpu_torch.engine.inference import make_e2e_pose_pipeline
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    size = 96
+    cfg = Config(model=ModelConfig(backbone="resnet50",
+                                   compute_dtype=torch.bfloat16),
+                 eval=EvalConfig(inp_size=size))
+    cfg = dataclasses.replace(
+        cfg,
+        detection=dataclasses.replace(cfg.detection, max_detections=32,
+                                      test_score_thresh=0.1),
+        peaks=dataclasses.replace(cfg.peaks, thre1=0.0, max_peaks_per_joint=8),
+        prn=dataclasses.replace(cfg.prn, max_people=8))
+    cpu_model = build_posenet(cfg.model, torch.device("cpu"), seed=SEED + 2,
+                              head_output_std=0.01)
+    imgs = torch.from_numpy(np.random.RandomState(SEED + 2).randint(
+        0, 256, (2, size, size, 3), dtype=np.uint8))
+    spread_detection_heads(cpu_model, imgs)
+    t0 = time.perf_counter()
+    blob = export_pose_pipeline(cpu_model, cfg, 2, device="cpu")
+    export_s = time.perf_counter() - t0
+    sp = load_pose_pipeline(blob, device="cuda")
+    gpu_model = build_posenet(cfg.model, torch.device("cuda"),
+                              {k: v.cuda() for k, v in cpu_model.state_dict().items()})
+    live = make_e2e_pose_pipeline(gpu_model, cfg, (size, size), device="cuda")
+    imgs = imgs.cuda()
+    scales = torch.tensor([1.0, 1.5], device="cuda")
+    want = live(imgs, scales)[1]
+    cuda_nms.launches = 0
+    got = sp(imgs, scales)
+    torch.cuda.synchronize()
+    launches = cuda_nms.launches
+    if launches < 1:
+        raise AssertionError("the CPU-exported program did not launch K1 on "
+                             "the card")
+    for name, g, w in zip(got._fields, got, want):
+        if g.device.type != "cuda" or not torch.equal(g, w):
+            raise AssertionError(f"CPU-exported program on the card differs "
+                                 f"from the live CUDA pipeline in {name}")
+    log(f"deploy: a program exported on the CPU (resnet50 96 px bf16, "
+        f"{len(blob) / 1e6:.1f} MB, export + save {export_s:.1f} s on the "
+        f"host) loaded onto cuda: K1 launches {launches}, 8 outputs equal to "
+        f"the live CUDA pipeline ({int(want.box_valid.sum())} boxes, "
+        f"{int(want.peak_valid.sum())} peaks) [{card}]")
+    return launches
+
+
+def deployment_phase(model, cfg, bench_imgs, images, card: str) -> dict:
+    """Phase 5b at full width (the serving model: ResNet-101, 480 px, bf16):
+    BN folding checked and timed against the unfolded forward, the folded
+    serving pipeline exported, saved, loaded and served through
+    ``BatchPredictor.from_exported`` against a live folded predictor, a
+    CPU-exported program run on the card, and the port's bench."""
+    import tempfile
+
+    from multiposenet_tpu_torch import bench
+    from multiposenet_tpu_torch.engine import export_model
+    from multiposenet_tpu_torch.engine.inference import make_e2e_pose_pipeline
+    from multiposenet_tpu_torch.engine.predictor import BatchPredictor
+    from multiposenet_tpu_torch.models.fold_bn import fold_bn_state_dict
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    t_phase = time.perf_counter()
+    fcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              fold_bn=True))
+    folded = build_posenet(fcfg.model, torch.device("cuda"),
+                           fold_bn_state_dict(model.state_dict()))
+    pipe = make_e2e_pose_pipeline(model, cfg, (INP, INP), device="cuda")
+    fpipe = make_e2e_pose_pipeline(folded, fcfg, (INP, INP), device="cuda")
+
+    # the folded bf16 forward against the unfolded one, beside bf16's own
+    # error against the unfolded float32 forward: the fold only reassociates,
+    # so its error must stay within FOLD_REL_TOL times bf16's own
+    ref = pipe.forward(bench_imgs)
+    got = fpipe.forward(bench_imgs)
+    bf16_cfg = model.cfg
+    model.cfg = dataclasses.replace(bf16_cfg, compute_dtype=torch.float32)
+    try:
+        f32 = pipe.forward(bench_imgs)
+    finally:
+        model.cfg = bf16_cfg
+    errs = {}
+    for name, g, r, f in zip(("heatmaps", "cls", "reg"), got, ref, f32):
+        fold_err, bf16_err = max_rel_err(g, r), max_rel_err(r, f)
+        errs[name] = (fold_err, bf16_err)
+        if not (np.isfinite(fold_err) and fold_err <= FOLD_REL_TOL * bf16_err):
+            raise AssertionError(
+                f"folded {name} off the unfolded by {fold_err:.3e} of its "
+                f"largest value; bf16 itself is {bf16_err:.3e} off float32")
+    log("fold: folded vs unfolded forward (bf16, batch 64), max error over "
+        "the largest value, beside bf16's own against float32: "
+        + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, (a, b) in errs.items()))
+    del ref, got, f32
+
+    fwd = lambda p: (lambda: p.forward(bench_imgs))  # noqa: E731
+    unfolded_ms = [cuda_time_ms(fwd(pipe), 10, warmup=2)]
+    folded_ms = [cuda_time_ms(fwd(fpipe), 10, warmup=3)]
+    folded_ms.append(cuda_time_ms(fwd(fpipe), 10, warmup=2))
+    unfolded_ms.append(cuda_time_ms(fwd(pipe), 10, warmup=2))
+    prof = {"folded": device_busy(fwd(fpipe)), "unfolded": device_busy(fwd(pipe))}
+    log(f"fold: batch {BENCH_BATCH} x {INP}px resnet101 bf16 forward "
+        f"unfolded {unfolded_ms[0]:.3f} / {unfolded_ms[1]:.3f} ms, folded "
+        f"{folded_ms[0]:.3f} / {folded_ms[1]:.3f} ms (CUDA events; order "
+        f"unfolded, folded, folded, unfolded) [{card}]")
+    for name, p in prof.items():
+        log(f"fold: {name} forward profiled: wall {p['wall_ms']:.2f} ms, "
+            f"kernels {p['kernel_ms']:.2f} ms, busy {p['busy_share']:.3f}; "
+            "top: " + "; ".join(f"{k} {ms:.2f}" for k, ms in p["top"]))
+
+    # the folded serving pipeline exported at the serving batch, then served
+    # from the artifact against a live folded predictor, with deterministic
+    # cuDNN algorithms on both sides
+    t0 = time.perf_counter()
+    program = export_model.export_program(folded, fcfg, SERVE_BATCH, device="cuda")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = export_model.save_program(program)
+    save_s = time.perf_counter() - t0
+    del program
+    with deterministic_cudnn():
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "pose.pt2")
+            with open(path, "wb") as f:
+                f.write(blob)
+            t0 = time.perf_counter()
+            aot = BatchPredictor.from_exported(path, device="cuda")
+            load_s = time.perf_counter() - t0
+        if (aot.batch_size, aot.inp) != (SERVE_BATCH, INP):
+            raise AssertionError(f"artifact signature {aot.batch_size} x "
+                                 f"{aot.inp}, expected {SERVE_BATCH} x {INP}")
+        live = BatchPredictor(fcfg, model=folded, batch_size=SERVE_BATCH,
+                              device="cuda")
+        want = live.predict(images)
+        cuda_nms.launches = 0
+        t0 = time.perf_counter()
+        got = aot.predict(images)
+        serve_s = time.perf_counter() - t0
+        launches = cuda_nms.launches
+    n_batches = -(-len(images) // SERVE_BATCH)
+    n_people = check_people(got, len(images))
+    if got != want:
+        bad = sum(g != w for g, w in zip(got, want))
+        raise AssertionError(f"the exported program's person rows differ from "
+                             f"the live folded predictor's on {bad} images")
+    if launches < n_batches:
+        raise AssertionError(f"K1 launched {launches} times through the "
+                             f"loaded program, expected >= {n_batches}")
+    log(f"export: folded serving pipeline at batch {SERVE_BATCH} x {INP}px "
+        f"bf16: {len(blob) / 1e6:.1f} MB, export {export_s:.1f} s, save "
+        f"{save_s:.1f} s, load {load_s:.1f} s; from_exported answered "
+        f"{len(images)} images in {serve_s:.3f} s, {n_people} people, person "
+        f"rows equal to the live folded predictor's; K1 launches {launches} "
+        f"[{card}]")
+    del aot, live, blob, folded, fpipe, pipe
+
+    with deterministic_cudnn():
+        moved = device_move_check(card)
+    t0 = time.perf_counter()
+    line = bench.main()
+    if line["mfu"] is None or line["device_busy_ms_per_exec"] is None:
+        raise AssertionError("the bench left mfu or device_busy_ms_per_exec unset")
+    log(f"bench: python -m multiposenet_tpu_torch.bench in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    log(f"deploy: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "moved_launches": moved}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1852,7 +2074,7 @@ def main() -> int:
     from multiposenet_tpu_torch.engine.predictor import BatchPredictor
     from multiposenet_tpu_torch.models.posenet import build_posenet
     from multiposenet_tpu_torch.ops import cuda_nms
-    from multiposenet_tpu_torch.ops.nms import nms_suppress_plain
+    from multiposenet_tpu_torch.ops.nms import nms_suppress, nms_suppress_plain
 
     t_start = time.perf_counter()
     torch.backends.cudnn.benchmark = True
@@ -1914,6 +2136,13 @@ def main() -> int:
     bare_ms = host_ms_per_call(bare)
     bare_ms2 = host_ms_per_call(bare)
     host_ms2 = host_ms_per_call(call)
+    # the registered operator mpn::nms_suppress, as the pipeline calls it,
+    # against the ctypes wrapper it dispatches to: wrapper, op, op, wrapper
+    op = lambda: nms_suppress(rb, rv, thresh)  # noqa: E731
+    wrap_ms = [host_ms_per_call(call)]
+    op_host_ms = host_ms_per_call(op)
+    op_host_ms2 = host_ms_per_call(op)
+    wrap_ms.append(host_ms_per_call(call))
     kernel_ms2 = graph_time_ms(call)
     call_ms2 = cuda_time_ms(call, 200)
     plain_ms2 = cuda_time_ms(plain, 20, warmup=2)
@@ -1923,7 +2152,10 @@ def main() -> int:
         f"on the device (CUDA graph), {call_ms:.5f} / {call_ms2:.5f} ms per "
         f"wrapper call, {host_ms:.5f} / {host_ms2:.5f} ms of host time per "
         f"wrapper call against {bare_ms:.5f} / {bare_ms2:.5f} ms per bare "
-        f"ctypes launch, plain twin {plain_ms:.4f} / {plain_ms2:.4f} ms, bound "
+        f"ctypes launch; through the operator mpn::nms_suppress "
+        f"{op_host_ms:.5f} / {op_host_ms2:.5f} ms of host time per call "
+        f"against the wrapper's {wrap_ms[0]:.5f} / {wrap_ms[1]:.5f}; plain twin "
+        f"{plain_ms:.4f} / {plain_ms2:.4f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by}), bound share {bound_share:.5f} at "
         f"B={BENCH_BATCH} K={K} [{card}]")
     split = time_nms_probes(probe, rb, rv, thresh)
@@ -1983,6 +2215,9 @@ def main() -> int:
         f"{host_s * 1e3:.2f} ms/batch = {BENCH_BATCH / host_s:.1f} images/s; "
         f"peak memory {peak_gib:.2f} GiB [{card}]")
 
+    # ---- 5b. deployment: fold, export, serve from the artifact, bench ---------
+    deploy = deployment_phase(model, cfg, bench_imgs, images, card)
+
     # ---- 6b. multi-scale COCO eval at full width -----------------------------
     full_eval = full_width_eval(model, cfg, card)
     del model, predictor, pipe, heads, outs, bench_imgs
@@ -2001,16 +2236,20 @@ def main() -> int:
         "source": "multiposenet_tpu_torch/csrc/nms_suppress.cu",
         "replaces": "multiposenet_tpu/ops/pallas_nms.py:33",
         "tpu_kernel": "multiposenet_tpu/ops/pallas_nms.py::_nms_suppress_kernel",
-        "launches": launches["nms_suppress"] + full_eval["launches"] + cli["launches"],
+        "launches": (launches["nms_suppress"] + full_eval["launches"]
+                     + cli["launches"] + deploy["launches"]),
         "launches_by_path": {"serving": launches["nms_suppress"],
                              "coco_eval": full_eval["launches"],
                              "coco_eval_check": eval_check["launches"],
-                             "cli_coco_eval": cli["launches"]},
+                             "cli_coco_eval": cli["launches"],
+                             "exported_serving": deploy["launches"],
+                             "exported_on_cpu": deploy["moved_launches"]},
         "max_abs_err": max(max_err, full_eval["max_abs_err"]),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "call_ms": call_ms,
         "host_ms": host_ms,
+        "op_host_ms": op_host_ms,
         "bare_host_ms": bare_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

@@ -6,6 +6,8 @@
   python -m multiposenet_tpu_torch.cli test --ckpt <dir> --testdata ./demo/test_images
   python -m multiposenet_tpu_torch.cli coco-eval --ckpt <dir> --coco-root /data/COCO
   python -m multiposenet_tpu_torch.cli merge-results shard0.json shard1.json
+  python -m multiposenet_tpu_torch.cli export-program pose.pt2 --ckpt <dir> --fold-bn
+  python -m multiposenet_tpu_torch.cli bench
 
 Every command runs on the CUDA GPU; ``MPN_PLATFORM=cpu`` asks for the CPU
 (the plain PyTorch twins of the kernels), as the JAX CLI's variable pins its
@@ -41,6 +43,14 @@ def _common(p: argparse.ArgumentParser):
     p.add_argument("--bf16", action="store_true",
                    help="run conv/matmul activations in bfloat16 (autocast; "
                         "parameters stay float32)")
+
+
+def _fold_flag(p: argparse.ArgumentParser):
+    p.add_argument("--fold-bn", action="store_true",
+                   help="fold the trunk BatchNorms into the convs before "
+                        "them after the checkpoint load (inference-only "
+                        "rewrite, models/fold_bn.py); outputs move by float "
+                        "reassociation only")
 
 
 def resolve_cli_device():
@@ -146,6 +156,7 @@ def cmd_val(args):
 def _load_eval(args, subnet="keypoint"):
     from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
     from multiposenet_tpu_torch.engine.evaluator import Evaluator
+    from multiposenet_tpu_torch.models.fold_bn import fold_bn_state_dict
     from multiposenet_tpu_torch.models.posenet import build_posenet
 
     device = resolve_cli_device()
@@ -156,6 +167,12 @@ def _load_eval(args, subnet="keypoint"):
         # (reference load_net, net_utils.py:69-110)
         sd, _ = ckpt_lib.restore_model_state_partial(args.ckpt, model.state_dict())
         model.load_state_dict(sd)
+    if getattr(args, "fold_bn", False):
+        # restored into the unfolded graph first, then folded
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, fold_bn=True))
+        model = build_posenet(cfg.model, device,
+                              fold_bn_state_dict(model.state_dict()))
     return cfg, Evaluator(cfg, device=device, model=model)
 
 
@@ -218,6 +235,30 @@ def cmd_coco_eval(args):
     return metrics
 
 
+def cmd_export_program(args):
+    """Export the whole pose pipeline, weights inside, as a serialized
+    ``torch.export`` program (engine/export_model.py); serve it with
+    ``BatchPredictor.from_exported``."""
+    from multiposenet_tpu_torch.engine.export_model import export_pose_pipeline
+
+    # an artifact of seed-0 weights would look valid and serve nonsense
+    if not args.ckpt:
+        sys.exit("error: export-program requires --ckpt (the artifact holds "
+                 "the weights; exporting a random init is never what you want)")
+    cfg, ev = _load_eval(args)
+    batch = args.batch_size or 8
+    blob = export_pose_pipeline(ev.model, cfg, batch, device=ev.device)
+    with open(args.out, "wb") as f:
+        f.write(blob)
+    print(f"wrote {args.out}: {len(blob) / 1e6:.1f} MB, batch={batch}, "
+          f"inp={cfg.eval.inp_size}")
+
+
+def cmd_bench(_args):
+    from multiposenet_tpu_torch import bench
+    return bench.main()
+
+
 def cmd_merge_results(args):
     """Concatenate per-shard result files and run the OKS evaluation."""
     from multiposenet_tpu_torch.data.coco_json import COCOIndex
@@ -266,11 +307,13 @@ def main(argv=None):
     _common(pd)
     pd.add_argument("--testdata", default="./demo/test_images/")
     pd.add_argument("--testresult", default="./demo/output/")
+    _fold_flag(pd)
     pd.set_defaults(fn=cmd_test)
 
     pc = sub.add_parser("coco-eval")
     _common(pc)
     pc.add_argument("--max-images", type=int, default=None)
+    _fold_flag(pc)
     pc.add_argument("--result-file", default=None)
     pc.add_argument("--metrics-file", default=None,
                     help="write the 10-stat AP/AR summary as JSON")
@@ -299,6 +342,20 @@ def main(argv=None):
     pm.add_argument("--max-images", type=int, default=None)
     pm.add_argument("--out", default=None, help="write merged json here")
     pm.set_defaults(fn=cmd_merge_results)
+
+    pe = sub.add_parser(
+        "export-program",
+        help="export the whole pose pipeline (weights inside) as a "
+             "torch.export program; serve it with "
+             "BatchPredictor.from_exported")
+    _common(pe)
+    pe.add_argument("out", help="output artifact path")
+    _fold_flag(pe)
+    pe.set_defaults(fn=cmd_export_program)
+
+    pb = sub.add_parser("bench", help="the e2e serving benchmark (bench.py's "
+                                      "configuration) on the GPU")
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -36,6 +36,9 @@ class ModelConfig:
     prn_dropout: float = 0.5             # PRN dropout rate while training
     # activation dtype of convs and matmuls; parameters stay float32
     compute_dtype: torch.dtype = torch.float32
+    # inference-only graph: the trunk BatchNorms folded into the convs
+    # before them (models/fold_bn.fold_bn_state_dict makes its weights)
+    fold_bn: bool = False
 
     @property
     def prn_height(self) -> int:

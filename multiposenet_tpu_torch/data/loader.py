@@ -21,7 +21,18 @@ import torch
 from multiposenet_tpu_torch.config import resolve_device
 
 
+class _WorkerError:
+    """A worker's exception on its way to the consuming thread."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
 class Loader:
+    """Batches of ``dataset`` in order, built by ``num_workers`` threads.
+    An exception raised while building a sample is raised in the iterating
+    thread, which then stops the other workers."""
+
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 4):
@@ -63,6 +74,12 @@ class Loader:
         done = threading.Event()
 
         def worker(wid: int):
+            try:
+                fill(wid)
+            except BaseException as e:  # raised in the consumer's thread
+                out_q.put(_WorkerError(e))
+
+        def fill(wid: int):
             rng = np.random.default_rng((self.seed + self.epoch) * 10007 + wid)
             while not done.is_set():
                 try:
@@ -92,7 +109,10 @@ class Loader:
 
         try:
             for _ in range(len(batches)):
-                yield out_q.get()
+                item = out_q.get()
+                if isinstance(item, _WorkerError):
+                    raise item.exc
+                yield item
         finally:
             done.set()
 

@@ -61,13 +61,23 @@ def full_fp32_matmul():
 
 
 @functools.lru_cache(maxsize=8)
-def _imagenet_stats(device: torch.device
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _cached_imagenet_stats(device: torch.device
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     # uploaded once per device: a pageable upload per call would block the
     # host until the device has drained its queue
     return (torch.from_numpy(IMAGENET_MEAN).to(device),
             torch.from_numpy(IMAGENET_STD).to(device),
             torch.tensor(255.0, device=device))
+
+
+def _imagenet_stats(device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    # torch.export traces with fake tensors, which the cache would keep and
+    # hand to every later call: a trace makes its own, which become
+    # constants of the exported program
+    if torch.compiler.is_exporting():
+        return _cached_imagenet_stats.__wrapped__(device)
+    return _cached_imagenet_stats(device)
 
 
 def preprocess_on_device(img_rgb_u8: torch.Tensor) -> torch.Tensor:

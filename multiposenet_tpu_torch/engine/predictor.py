@@ -66,6 +66,26 @@ class BatchPredictor:
         self._pipeline = make_e2e_pose_pipeline(model, cfg, (self.inp, self.inp),
                                                 device=self.device)
 
+    @classmethod
+    def from_exported(cls, src, device=None) -> "BatchPredictor":
+        """Serve from an ``engine/export_model`` artifact (a path or its
+        bytes) on ``device`` (``cuda`` unless the caller names another).
+        The weights are inside the program, so there is no config and no
+        model (``cfg`` and ``model`` are None); the batch size and input
+        size come from the program's input signature.  Packing, the pinned
+        upload and the two-deep dispatch are those of a live predictor."""
+        from multiposenet_tpu_torch.engine.export_model import load_pose_pipeline
+
+        sp = load_pose_pipeline(src, device)
+        self = cls.__new__(cls)
+        self.device = sp.device
+        self.cfg = None
+        self.model = None
+        self.batch_size = sp.batch
+        self.inp = sp.inp_size
+        self._pipeline = lambda images, scales: (None, sp(images, scales))
+        return self
+
     # -- host-side packing ------------------------------------------------
 
     def _pack(self, img_bgr: np.ndarray) -> Tuple[torch.Tensor, float]:

@@ -14,6 +14,10 @@ BatchNorm (eps 1e-5) normalises with its running statistics unless a
 forward is given ``train=True``, as the keypoint train step does: then it
 normalises with the batch's statistics and updates the running ones with
 Flax's rule (``BatchNorm``).  The module's own ``training`` flag is not read.
+
+``fold_bn=True`` builds the inference-only graph of a folded state dict
+(models/fold_bn.py): the trunk convs carry a bias and each trunk BN is a
+``FoldedBN``, which passes its input through and refuses ``train=True``.
 """
 
 from __future__ import annotations
@@ -89,23 +93,38 @@ class BatchNorm(nn.BatchNorm2d):
         return out
 
 
+class FoldedBN(nn.Module):
+    """A trunk BatchNorm of the ``fold_bn=True`` graph: its affine lives in
+    the conv before it, so it passes its input through."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            raise RuntimeError("fold_bn is an inference-only graph")
+        return x
+
+
+def _trunk_bn(c: int, fold_bn: bool) -> nn.Module:
+    return FoldedBN() if fold_bn else BatchNorm(c)
+
+
 class Bottleneck(nn.Module):
     """ResNet bottleneck block, expansion 4 (reference fpn.py:9-34)."""
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 fold_bn: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm(planes)
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=fold_bn)
+        self.bn1 = _trunk_bn(planes, fold_bn)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
-        self.bn2 = BatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm(planes * 4)
+                               bias=fold_bn)
+        self.bn2 = _trunk_bn(planes, fold_bn)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=fold_bn)
+        self.bn3 = _trunk_bn(planes * 4, fold_bn)
         self.downsample = None
         if stride != 1 or inplanes != planes * 4:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-                BatchNorm(planes * 4))
+                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=fold_bn),
+                _trunk_bn(planes * 4, fold_bn))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x), train))
@@ -119,19 +138,20 @@ class Bottleneck(nn.Module):
 
 class ResNetFPN(nn.Module):
     """ResNet trunk + dual FPN heads; block_counts (3,4,6,3) is resnet50,
-    (3,4,23,3) resnet101."""
+    (3,4,23,3) resnet101; ``fold_bn`` builds the folded inference graph."""
 
     def __init__(self, block_counts: Sequence[int] = (3, 4, 23, 3),
-                 channels: int = 256):
+                 channels: int = 256, fold_bn: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm(64)
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=fold_bn)
+        self.bn1 = _trunk_bn(64, fold_bn)
         inplanes = 64
         for li, (planes, blocks, stride) in enumerate(
                 zip((64, 128, 256, 512), block_counts, (1, 2, 2, 2)), start=1):
             layer: List[nn.Module] = []
             for i in range(blocks):
-                layer.append(Bottleneck(inplanes, planes, stride if i == 0 else 1))
+                layer.append(Bottleneck(inplanes, planes,
+                                        stride if i == 0 else 1, fold_bn))
                 inplanes = planes * 4
             self.add_module(f"layer{li}", nn.Sequential(*layer))
 

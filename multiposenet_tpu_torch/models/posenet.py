@@ -49,7 +49,8 @@ class PoseNet(nn.Module):
     def __init__(self, cfg: ModelConfig = ModelConfig()):
         super().__init__()
         self.cfg = cfg
-        self.fpn = ResNetFPN(BLOCK_COUNTS[cfg.backbone], cfg.fpn_channels)
+        self.fpn = ResNetFPN(BLOCK_COUNTS[cfg.backbone], cfg.fpn_channels,
+                             cfg.fold_bn)
         head = KeypointHead(cfg.num_joints, cfg.num_interm_channels,
                             cfg.keypoint_mid_channels, cfg.fpn_channels)
         # register the head's convs flat on PoseNet (reference key names);
@@ -163,7 +164,8 @@ def build_trainable_posenet(cfg: ModelConfig, device: torch.device,
                             state_dict: Optional[dict] = None, seed: int = 0,
                             head_output_std: float = 0.0) -> PoseNet:
     """A PoseNet on ``device`` with every parameter requiring grad: weights
-    from ``state_dict`` (loaded strictly) or drawn from ``seed``.  On a
+    from ``state_dict`` (loaded strictly: a folded one into the
+    ``cfg.fold_bn`` graph) or drawn from ``seed``.  On a
     CUDA device the model is kept in ``channels_last`` memory format.  The
     train steps pick the stage's trainable subset
     (engine/train_steps.create_train_state)."""

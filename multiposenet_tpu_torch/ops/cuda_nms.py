@@ -15,9 +15,10 @@ divide stays; only a pair whose intersection is 0 or NaN skips it, when
 ``iou_thresh >= 0``.
 
 Built with nvcc for ``sm_90a`` at first use (``_build.py``) and called
-through ctypes on PyTorch's current stream.  ``ops/nms.nms_suppress`` sends
-CUDA tensors here and CPU tensors to the plain PyTorch twin
-``ops/nms.nms_suppress_plain``; there is no fallback from one to the other.
+through ctypes on PyTorch's current stream.  ``ops/nms.nms_suppress``, the
+operator ``mpn::nms_suppress``, sends CUDA tensors here and CPU tensors to
+the plain PyTorch twin ``ops/nms.nms_suppress_plain``; there is no fallback
+from one to the other.
 """
 
 from __future__ import annotations

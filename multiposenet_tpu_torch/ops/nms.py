@@ -3,11 +3,15 @@
     scores -> threshold mask -> top-k (K candidates, ties by ascending index)
            -> greedy +1px-IoU suppression (strict >) -> fixed-K outputs
 
-The suppression step is ``nms_suppress``: on a CUDA tensor it launches the
-hand-written kernel (ops/cuda_nms.py, csrc/nms_suppress.cu); on a CPU tensor
-it runs ``nms_suppress_plain``, the kernel's plain PyTorch twin, which the
-CPU tests hold against the JAX package and chip_smoke.py holds the kernel
-against on the card.
+The suppression step is ``nms_suppress``, the registered operator
+``mpn::nms_suppress`` (``torch.library.custom_op``): on a CUDA tensor the
+dispatcher runs the hand-written kernel (ops/cuda_nms.py,
+csrc/nms_suppress.cu); on a CPU tensor ``nms_suppress_plain``, the kernel's
+plain PyTorch twin, which the CPU tests hold against the JAX package and
+chip_smoke.py holds the kernel against on the card.  Any other device has
+no implementation and raises.  As an operator with a shape function it is
+one opaque node of a ``torch.export`` graph (engine/export_model.py), so a
+program that holds it is loaded after importing this module.
 """
 
 from __future__ import annotations
@@ -42,13 +46,25 @@ def nms_suppress_plain(sorted_boxes: torch.Tensor, valid: torch.Tensor,
     return valid & ~suppressed
 
 
+@torch.library.custom_op("mpn::nms_suppress", mutates_args=(),
+                         device_types="cpu")
 def nms_suppress(sorted_boxes: torch.Tensor, valid: torch.Tensor,
                  iou_thresh: float) -> torch.Tensor:
     """Greedy suppression: the CUDA kernel for CUDA tensors, the plain twin
     for CPU tensors."""
-    if sorted_boxes.device.type == "cpu":
-        return nms_suppress_plain(sorted_boxes, valid, iou_thresh)
+    return nms_suppress_plain(sorted_boxes, valid, iou_thresh)
+
+
+@nms_suppress.register_kernel("cuda")
+def _nms_suppress_cuda(sorted_boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_thresh: float) -> torch.Tensor:
     return cuda_nms.nms_suppress_cuda(sorted_boxes, valid, iou_thresh)
+
+
+@nms_suppress.register_fake
+def _nms_suppress_fake(sorted_boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_thresh: float) -> torch.Tensor:
+    return torch.empty_like(valid)
 
 
 def rounded_to(value: float, dtype: torch.dtype) -> float:

@@ -51,10 +51,17 @@ def _upsample_matrix(src: int, factor: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+def _cached_upsample(src: int, factor: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(_upsample_matrix(src, factor))).to(device)
+
+
 def _upsample_tensor(src: int, factor: int, device: torch.device) -> torch.Tensor:
     """``_upsample_matrix`` on ``device``, uploaded once per device rather
-    than on every call."""
-    return torch.from_numpy(np.array(_upsample_matrix(src, factor))).to(device)
+    than on every call.  A torch.export trace gets a tensor of its own: the
+    cache would keep the trace's fake tensor for every later call."""
+    if torch.compiler.is_exporting():
+        return _cached_upsample.__wrapped__(src, factor, device)
+    return _cached_upsample(src, factor, device)
 
 
 class PeakSet(NamedTuple):

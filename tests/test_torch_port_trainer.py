@@ -7,6 +7,7 @@ bfloat16 step per stage."""
 
 import os
 import signal
+import threading
 import time
 
 import numpy as np
@@ -61,6 +62,37 @@ def test_loader_equals_jax():
         for g, w in zip(got, want):
             for k in w:
                 np.testing.assert_array_equal(g[k], w[k])
+
+
+class RaisingDataset(ArrayDataset):
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i, rng=None):
+        if i == 1:
+            raise RuntimeError("sample 1 is unreadable")
+        return super().__getitem__(i, rng)
+
+
+def test_loader_raises_a_worker_exception():
+    """A sample that raises reaches the iterating thread instead of leaving
+    it blocked on a batch that never comes."""
+    outcome = []
+
+    def consume():
+        try:
+            list(Loader(RaisingDataset(), batch_size=2, num_workers=1,
+                        shuffle=False))
+            outcome.append(None)
+        except RuntimeError as e:
+            outcome.append(e)
+
+    th = threading.Thread(target=consume, daemon=True)
+    th.start()
+    th.join(timeout=10)
+    assert not th.is_alive(), "Loader still blocked after 10 s"
+    assert len(outcome) == 1 and isinstance(outcome[0], RuntimeError)
+    assert "sample 1 is unreadable" in str(outcome[0])
 
 
 # ---------------------------------------------------------------- prefetch
