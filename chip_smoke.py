@@ -49,7 +49,9 @@ Phases (any failure exits non-zero, and no result line is printed):
               person rows and OKS stats must agree; the peak threshold
               overfills a joint's slots, so images are dispatched again
               from the worker thread at the escalated capacity; NMS
-              launched once per image dispatch;
+              launched once per image dispatch; then the host chain
+              (``device_resize`` off: K1 on every scale) and grouped
+              dispatch (``group_size`` 2) on both devices the same way;
   6b. coco_eval  Evaluator.coco_eval at the reference's protocol (480 px, 5
               scales + flip, max_people 64, 32 peaks per joint, escalation
               at 128/256) on the serving model over 16 images at COCO sizes
@@ -58,6 +60,15 @@ Phases (any failure exits non-zero, and no result line is printed):
               with the split by stage (CUDA events) and its launch counts,
               then the image loop alone, pipelined and serial over the same
               images, timed and profiled;
+  6c. variants  every evaluator variant at 6b's width on 4 of its images
+              of one size: default, host peaks, host image resize, host
+              grouping, the host chain, detections on every scale, and
+              group_size 4 (one group, K1 at B = 8); per variant a warm-up
+              pass whose K1 inputs are held against the plain twin, a timed
+              pass with its exact K1 launch count, its rows against the
+              default path's; the device's busy share of the default and
+              the grouped loop; ``cli test`` on demo/test_images, whose
+              two PNGs per image must decode at the image's size;
   7a. train check  one train step of each stage (keypoint, detection, PRN)
               on the card and on the CPU from the same seeded weights and
               batch (resnet50, 96 px, batch 2, float32, TF32 off, PRN
@@ -118,6 +129,8 @@ import time
 
 import numpy as np
 import torch
+
+from multiposenet_tpu_torch.data.image_io import write_png
 
 SEED = 0
 INP = 480
@@ -939,16 +952,42 @@ def record_fetches(ev) -> list:
     return fetched
 
 
+def compare_rows(gpu_rows, cpu_rows, what: str) -> tuple:
+    """Person rows of two runs of one eval: equal images, scores and
+    visibilities, a keypoint on a peak exactly equal; a keypoint without one
+    (v=0) falls back to the PRN's argmax inside its box, so it moves with
+    the box.  Returns (keypoints on peaks, largest box or fallback |diff|)."""
+    if len(gpu_rows) != len(cpu_rows) or not gpu_rows:
+        raise AssertionError(f"{what}: {len(gpu_rows)} CUDA result rows against "
+                             f"{len(cpu_rows)} CPU ones")
+    n_peak_kps, err = 0, 0.0
+    for g, c in zip(gpu_rows, cpu_rows):
+        gk = np.reshape(g["keypoints"], (17, 3))
+        ck = np.reshape(c["keypoints"], (17, 3))
+        on_peak = ck[:, 2] > 0
+        if (g["image_id"] != c["image_id"] or g["score"] != c["score"]
+                or not np.array_equal(gk[:, 2], ck[:, 2])
+                or not np.array_equal(gk[on_peak], ck[on_peak])):
+            raise AssertionError(f"{what}: CUDA and CPU person rows differ: {g} {c}")
+        n_peak_kps += int(on_peak.sum())
+        err = max(err, float(np.abs(np.subtract(g["bbox"], c["bbox"])).max()),
+                  float(np.abs(gk[~on_peak] - ck[~on_peak]).max(initial=0.0)))
+    return n_peak_kps, err
+
+
 def check_eval_against_cpu(device: str = "cuda") -> dict:
     """Phase 6a: the evaluator on the card against the same evaluator on
     the CPU (plain twins), resnet50 float32, 2 noise images of two sizes,
     inp_size 128, 3 scales, flip.  The CPU run is fed the CUDA run's
-    forward outputs for the same pyramid batches; everything after the
+    forward outputs for the same input batches; everything after the
     forward runs on both devices.  The joints' heatmaps are evened out and
     the peak threshold set so that the most crowded joint has 16 peaks:
     more than the 8 slots of the base tier, so that image is dispatched
     again from the worker thread at 32, and grouped at the escalated
-    (32 peaks, 32 people) tier."""
+    (32 peaks, 32 people) tier.  Then the host chain (``device_resize``
+    off: host crops, every scale with detections, host resize and peaks)
+    and grouped dispatch (``group_size`` 2: each image's group filled with
+    a replica) on both devices the same way."""
     from multiposenet_tpu_torch.config import Config, ModelConfig
     from multiposenet_tpu_torch.engine.evaluator import Evaluator
     from multiposenet_tpu_torch.models.posenet import build_posenet
@@ -1002,23 +1041,8 @@ def check_eval_against_cpu(device: str = "cuda") -> dict:
     if not score_max > 0 or score_err > 1e-5 * score_max:
         raise AssertionError(f"CUDA and CPU peak scores differ by {score_err} "
                              f"(largest {score_max})")
-    if len(gpu_rows) != len(cpu_rows) or not gpu_rows:
-        raise AssertionError(f"{len(gpu_rows)} CUDA result rows against "
-                             f"{len(cpu_rows)} CPU ones")
-    n_peak_kps = 0
-    for g, c in zip(gpu_rows, cpu_rows):
-        gk = np.reshape(g["keypoints"], (17, 3))
-        ck = np.reshape(c["keypoints"], (17, 3))
-        on_peak = ck[:, 2] > 0
-        # a joint on a peak is exact; a joint without one (v=0) falls back
-        # to the PRN's argmax inside the box, so it moves with the box
-        if (g["image_id"] != c["image_id"] or g["score"] != c["score"]
-                or not np.array_equal(gk[:, 2], ck[:, 2])
-                or not np.array_equal(gk[on_peak], ck[on_peak])):
-            raise AssertionError(f"CUDA and CPU person rows differ: {g} {c}")
-        n_peak_kps += int(on_peak.sum())
-        box_err = max(box_err, float(np.abs(np.subtract(g["bbox"], c["bbox"])).max()),
-                      float(np.abs(gk[~on_peak] - ck[~on_peak]).max(initial=0.0)))
+    n_peak_kps, err = compare_rows(gpu_rows, cpu_rows, "device path")
+    box_err = max(box_err, err)
     if box_err > 1e-4:
         raise AssertionError(f"CUDA and CPU boxes differ by {box_err}")
     if gpu_metrics.keys() != cpu_metrics.keys() or any(
@@ -1045,7 +1069,42 @@ def check_eval_against_cpu(device: str = "cuda") -> dict:
         f"{score_err:.2e} of {score_max:.2e}), OKS stats equal; images "
         f"{gpu.escalated} escalated to 32 peaks on both; K1 launched "
         f"{launches} times for {dispatches} image dispatches")
-    return {"launches": launches}
+    out = {"launches": launches}
+
+    # the host chain (K1 on every scale) and grouped dispatch (K1 once per
+    # group of 2 at B = 4, and once per escalated image at B = 2)
+    for name, fields, per_dispatch in (
+            ("host_resize", dict(device_resize=False), 3),
+            ("group_size_2", dict(group_size=2), 1)):
+        vcfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, **fields))
+        gpu = Evaluator(vcfg, model=gpu_model, device=device)
+        hook_forwards(gpu, heads, replay=False)
+        cuda_nms.launches = 0
+        gpu_metrics, gpu_rows = run_coco_eval(gpu, gt, images)
+        launches = cuda_nms.launches
+        cpu = Evaluator(vcfg, model=cpu_model, device="cpu")
+        hook_forwards(cpu, heads, replay=True)
+        cpu_metrics, cpu_rows = run_coco_eval(cpu, gt, images)
+        n_peak_kps, err = compare_rows(gpu_rows, cpu_rows, name)
+        if err > 1e-4:
+            raise AssertionError(f"{name}: CUDA and CPU boxes differ by {err}")
+        if gpu_metrics.keys() != cpu_metrics.keys() or any(
+                abs(gpu_metrics[k] - cpu_metrics[k]) > 1e-6 for k in gpu_metrics):
+            raise AssertionError(f"{name}: OKS stats differ: {gpu_metrics} "
+                                 f"{cpu_metrics}")
+        if gpu.escalated != cpu.escalated:
+            raise AssertionError(f"{name}: escalated images: CUDA {gpu.escalated}, "
+                                 f"CPU {cpu.escalated}")
+        expect = per_dispatch * len(images) + len(gpu.escalated)
+        if launches != expect:
+            raise AssertionError(f"{name}: K1 launched {launches} times, "
+                                 f"expected {expect}")
+        log(f"eval check {name}: CUDA == CPU on the same 2 images: "
+            f"{len(gpu_rows)} person rows equal ({n_peak_kps} keypoints on "
+            f"peaks, exact; boxes max |diff| {err:.2e}), OKS stats equal, "
+            f"escalated {gpu.escalated}; K1 launched {launches} times")
+        out[name] = launches
+    return out
 
 
 def stage_split(times, n_images: int) -> dict:
@@ -1108,26 +1167,29 @@ def record_nms_inputs():
     return calls, lambda: setattr(cuda_nms, "nms_suppress_cuda", launch)
 
 
-def check_eval_nms_inputs(calls, k: int) -> int:
+def check_eval_nms_inputs(calls, k: int, batches=(2,), label: str = "eval") -> int:
     """K1 against its plain twin, bit for bit, on every candidate set that
-    the eval handed it (one image and its mirror at scale 1.0 each)."""
+    the eval handed it: (B, k) with B in ``batches`` (an image and its
+    mirror at a scale, or a group of them)."""
     if not calls:
-        raise AssertionError("the eval never called the NMS kernel")
+        raise AssertionError(f"{label}: the eval never called the NMS kernel")
     errs, kept, suppressed = [], 0, 0
     for boxes, valid, thresh in calls:
-        if tuple(valid.shape) != (2, k):
-            raise AssertionError(f"eval NMS inputs of shape {tuple(valid.shape)}, "
-                                 f"expected (2, {k})")
-        got, err = check_nms_kernel(boxes, valid, thresh, "eval candidates",
+        if valid.shape[1] != k or valid.shape[0] not in batches:
+            raise AssertionError(f"{label}: NMS inputs of shape "
+                                 f"{tuple(valid.shape)}, expected (B, {k}) with "
+                                 f"B in {batches}")
+        got, err = check_nms_kernel(boxes, valid, thresh, f"{label} candidates",
                                     quiet=True)
         errs.append(err)
         kept += int(got.sum())
         suppressed += int((valid & ~got).sum())
     if not suppressed:
-        raise AssertionError("no eval candidate was suppressed: the check "
-                             "would not test the suppression")
-    log(f"kernel nms_suppress [eval candidates]: {len(calls)} calls at B=2 "
-        f"K={k} recorded on the warm-up pass, kept={kept} "
+        raise AssertionError(f"{label}: no eval candidate was suppressed: the "
+                             "check would not test the suppression")
+    shapes = sorted({tuple(v.shape) for _, v, _ in calls})
+    log(f"kernel nms_suppress [{label} candidates]: {len(calls)} calls at "
+        f"{shapes} recorded on the warm-up pass, kept={kept} "
         f"suppressed={suppressed} mismatches=0")
     return max(errs)
 
@@ -1279,7 +1341,211 @@ def full_width_eval(model, base_cfg, card: str, device: str = "cuda") -> dict:
             "ms_per_image": timed_s / n_images * 1e3,
             "loop_ms_per_image": pipelined_s / n_images * 1e3,
             "split_ms": split, "serial_ms_per_image": serial_on_s / n_images * 1e3,
-            "serial_split_ms": serial_split, "escalated": len(ev.escalated)}
+            "serial_split_ms": serial_split, "escalated": len(ev.escalated),
+            "images": images, "gt": gt, "cfg": cfg}
+
+
+# ---------------------------------------------------------------- phase 6c
+
+# variant -> (eval / prn fields, K1 launches per image dispatch (per group
+# with group_size), batch rows per launch)
+EVAL_VARIANTS = {
+    "default": ({}, 1, 2),
+    "host_peaks": (dict(eval=dict(device_peaks=False)), 1, 2),
+    "host_image_resize": (dict(eval=dict(device_image_resize=False)), 1, 2),
+    "host_grouping": (dict(prn=dict(device_grouping=False)), 1, 2),
+    "host_resize": (dict(eval=dict(device_resize=False)), len(EVAL_SCALES), 2),
+    "detect_all_scales": (dict(eval=dict(detect_scale1_only=False)),
+                          len(EVAL_SCALES), 2),
+    "group_size_4": (dict(eval=dict(group_size=4)), 1, 8),
+}
+# a keypoint at full resolution sits on the smooth top of an upsampled peak,
+# where the input's rounding moves the maximum by a pixel
+NEAR_PX = 2
+# rows equal to the default path's exactly: the same device numbers reach
+# the same (or, for host grouping, the reference's host) assignment
+EXACT_VARIANTS = ("detect_all_scales", "host_grouping")
+
+
+def row_agreement(rows, ref) -> dict:
+    """Rows of a variant against the default path's, each matched to the
+    default row of its image with the nearest box (a box's score, and so
+    the rows' order, moves with the input's rounding): the rows of each,
+    the share of matched keypoints equal in x, y and v, the largest |diff|
+    of the matched keypoints visible in both and of the matched boxes, and
+    the share with equal v within ``NEAR_PX`` pixels."""
+    free = {}
+    for r in ref:
+        free.setdefault(r["image_id"], []).append(r)
+    n_kps = n_equal = n_near = 0
+    kp_err = box_err = 0.0
+    for r in rows:
+        cands = free.get(r["image_id"], [])
+        if not cands:
+            continue
+        d = [float(np.abs(np.subtract(r["bbox"], c["bbox"])).max()) for c in cands]
+        w = cands.pop(int(np.argmin(d)))
+        box_err = max(box_err, min(d))
+        a, b = np.reshape(r["keypoints"], (17, 3)), np.reshape(w["keypoints"], (17, 3))
+        n_kps += 17
+        n_equal += int((a == b).all(axis=1).sum())
+        n_near += int(((a[:, 2] == b[:, 2])
+                       & (np.abs(a[:, :2] - b[:, :2]) <= NEAR_PX).all(axis=1)).sum())
+        both = (a[:, 2] > 0) & (b[:, 2] > 0)
+        kp_err = max(kp_err, float(np.abs(a[both, :2] - b[both, :2]).max(initial=0.0)))
+    return {"rows": len(rows), "ref_rows": len(ref),
+            "kp_equal_share": n_equal / max(n_kps, 1),
+            "kp_near_share": n_near / max(n_kps, 1), "kp_max_diff": kp_err,
+            "box_max_diff": box_err}
+
+
+def eval_variants(model, full_eval: dict, card: str, device: str = "cuda") -> dict:
+    """Phase 6c: every evaluator variant at 6b's full width (its model and
+    configuration, the joints' heatmaps evened out and the threshold set
+    anew as in 6a) on 4 of 6b's images of one size, so that
+    ``group_size`` 4 makes one group.  Per variant: a warm-up pass (cuDNN
+    plans of new shapes), whose K1 inputs are held against the plain twin;
+    a timed pass, whose K1 launches must be those of its path; its rows
+    against the default path's (equal for the variants that compute the
+    same numbers; for the others, whose inputs or peak finder differ, the
+    agreement is printed and a gross fault — a wrong image, mirror or
+    scale, which scrambles most keypoints — fails it).  The device's busy
+    share of the default and the grouped image loop; then ``cli test`` on
+    demo/test_images with its two PNGs per image."""
+    import tempfile
+
+    from multiposenet_tpu_torch import cli
+    from multiposenet_tpu_torch.data.coco_json import COCOIndex
+    from multiposenet_tpu_torch.data.image_io import read_image
+    from multiposenet_tpu_torch.engine.evaluator import Evaluator
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    t_phase = time.perf_counter()
+    first = full_eval["images"][0].shape[:2]
+    pick = [i for i, img in enumerate(full_eval["images"])
+            if img.shape[:2] == first][:4]
+    images = [full_eval["images"][i] for i in pick]
+    ids = {i + 1 for i in pick}
+    src = full_eval["gt"]
+    gt = {"images": [r for r in src["images"] if r["id"] in ids],
+          "annotations": [a for a in src["annotations"] if a["image_id"] in ids],
+          "categories": src["categories"]}
+    base = full_eval["cfg"]
+    # 6b's threshold leaves peaks on the neck alone, the most crowded joint
+    # of the random model, and the rows drop the neck: even the joints out
+    # as 6a does (the model is not used after this phase), so that the rows
+    # hold keypoints on peaks for the variants to agree on
+    spread_keypoint_heads(model, base, images, 16, device)
+    thre1 = calibrate_thre1(model, base, images, 16, device)
+    base = dataclasses.replace(base, peaks=dataclasses.replace(base.peaks, thre1=thre1))
+    k = base.detection.max_detections
+    n = len(images)
+    results, out = {}, {}
+    for name, (sections, per_dispatch, batch) in EVAL_VARIANTS.items():
+        cfg = base
+        for section, fields in sections.items():
+            cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(
+                getattr(cfg, section), **fields)})
+        ev = Evaluator(cfg, model=model, device=device)
+        loop_s = time_eval_loop(ev)
+        calls, restore = record_nms_inputs()
+        try:
+            run_coco_eval(ev, gt, images)
+        finally:
+            restore()
+        nms_err = check_eval_nms_inputs(calls, k, (2, batch), name)
+        del calls
+        cuda_nms.launches = 0
+        metrics, rows = run_coco_eval(ev, gt, images)
+        launches = cuda_nms.launches
+        # an escalated image is dispatched again alone, on the per-image path
+        grouped = name.startswith("group")
+        expect = ((1 if grouped else n) * per_dispatch
+                  + (1 if grouped else per_dispatch) * len(ev.escalated))
+        if launches != expect:
+            raise AssertionError(f"{name}: K1 launched {launches} times for {n} "
+                                 f"images ({len(ev.escalated)} escalated), "
+                                 f"expected {expect}")
+        check_people([[r for r in rows if r["image_id"] == i + 1] for i in pick], n)
+        results[name] = rows
+        out[name] = {"launches": launches, "ms_per_image": loop_s[-1] / n * 1e3,
+                     "escalated": len(ev.escalated), "max_abs_err": nms_err,
+                     "evaluator": ev}
+        if name == "default":
+            # ~90 boxes an image share ~16 peaks a joint: most keypoints
+            # fall back into their box, but a person's worth per image must
+            # lie on peaks for the comparisons to hold the peaks at all
+            kps = np.array([r["keypoints"][2::3] for r in rows])
+            on_peak = int((kps > 0).sum())
+            if on_peak < 17 * n:
+                raise AssertionError(f"only {on_peak} of {kps.size} keypoints lie "
+                                     "on peaks: the variants' rows would agree "
+                                     "on almost nothing")
+            agree = (f"the reference: {on_peak} of {kps.size} keypoints on peaks, "
+                     f"thre1 {thre1:.3e}")
+        elif name in EXACT_VARIANTS:
+            n_peak, err = compare_rows(rows, results["default"], name)
+            if err > 1e-4:
+                raise AssertionError(f"{name}: boxes differ from the default "
+                                     f"path's by {err}")
+            agree = f"rows equal to the default path's ({n_peak} keypoints on peaks)"
+        else:
+            a = row_agreement(rows, results["default"])
+            out[name]["agreement"] = a
+            if a["kp_near_share"] < 0.5:
+                raise AssertionError(f"{name}: rows disagree with the default "
+                                     f"path's beyond rounding: {a}")
+            agree = (f"against the default path: {a['rows']} / {a['ref_rows']} "
+                     f"rows, keypoints equal {a['kp_equal_share']:.4f}, within "
+                     f"{NEAR_PX} px {a['kp_near_share']:.4f}, largest "
+                     f"keypoint |diff| {a['kp_max_diff']:.1f} px, box "
+                     f"{a['box_max_diff']:.3e}")
+        log(f"eval variant {name}: {n} images {images[0].shape[:2]}, "
+            f"{out[name]['ms_per_image']:.2f} ms/image wall (image loop, to the "
+            f"device's end), K1 launches {launches} (expected {expect}, "
+            f"{len(ev.escalated)} escalated), {len(rows)} person rows, AP "
+            f"{metrics.get('AP', float('nan')):.4f}; {agree} [{card}]")
+
+    index = COCOIndex(dataset=gt)
+    img_ids = index.get_img_ids(cat_ids=[1])
+    by_name = {rec["file_name"]: img for rec, img in zip(gt["images"], images)}
+    for name in ("default", "group_size_4"):
+        ev = out[name]["evaluator"]
+        b = device_busy(lambda: ev._coco_eval_loop(index, img_ids,
+                                                   by_name.__getitem__, 64))
+        out[name]["busy"] = b
+        log(f"eval variant {name}, image loop profiled (CUDA activity only): "
+            f"{b['wall_ms'] / n:.2f} ms/image wall, kernels {b['kernel_ms'] / n:.2f} "
+            f"ms/image: device busy share {b['busy_share']:.3f}; top kernels by "
+            f"device ms/image: " + ", ".join(f"{kk} {v / n:.3f}" for kk, v in b["top"])
+            + f" [{card}]")
+    for v in out.values():
+        del v["evaluator"]
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo", "test_images")
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_nms.launches = 0
+        people = cli.main(["test", "--testdata", data, "--testresult", tmp])
+        test_launches = cuda_nms.launches
+        names = sorted(f for f in os.listdir(data) if f.endswith(".png"))
+        for f in names:
+            h, w = read_image(os.path.join(data, f)).shape[:2]
+            stem = os.path.join(tmp, f.split(".", 1)[0])
+            hm = read_image(stem + "_1heatmap.png", 0)
+            canvas = read_image(stem + "_2canvas.png")
+            if hm is None or canvas is None or hm.shape != (h, w) or \
+                    canvas.shape != (h, w, 3):
+                raise AssertionError(f"cli test: {f} ({h}x{w}) gave heatmap "
+                                     f"{None if hm is None else hm.shape} and canvas "
+                                     f"{None if canvas is None else canvas.shape}")
+        if test_launches < len(names):
+            raise AssertionError(f"cli test launched K1 {test_launches} times for "
+                                 f"{len(names)} images")
+    log(f"cli test on demo/test_images: {len(names)} images, {len(people)} people, "
+        f"<stem>_1heatmap.png and <stem>_2canvas.png decode at each image's size; "
+        f"K1 launched {test_launches} times; phase 6c wall "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"variants": out, "cli_test_launches": test_launches}
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1614,41 +1880,6 @@ def full_width_training(card: str, device: str = "cuda", configs=None) -> dict:
 
 
 # ---------------------------------------------------------------- phase 8
-
-def write_png(path: str, img: np.ndarray, filters) -> None:
-    """Write a uint8 (H, W) gray or (H, W, 3) BGR image as an 8-bit PNG
-    whose row r is filtered with ``filters[r % len(filters)]`` (0 None,
-    1 Sub, 2 Up, 3 Average, 4 Paeth)."""
-    import struct
-    import zlib
-
-    h, w = img.shape[:2]
-    rgb = img[:, :, ::-1] if img.ndim == 3 else img[:, :, None]
-    bpp = rgb.shape[2]
-    x = rgb.reshape(h, w * bpp).astype(np.int16)
-    a = np.zeros_like(x)
-    a[:, bpp:] = x[:, :-bpp]                         # left
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]                                   # up
-    c = np.zeros_like(x)
-    c[1:, bpp:] = x[:-1, :-bpp]                      # up-left
-    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
-    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    ftype = np.asarray(filters)[np.arange(h) % len(filters)]
-    pred = np.choose(ftype[:, None], [np.zeros_like(x), a, b, (a + b) >> 1, paeth])
-    rows = np.concatenate([ftype[:, None], (x - pred) & 255], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                             2 if bpp == 3 else 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes(), 6))
-                + chunk(b"IEND", b""))
-
 
 # every row filter, Average and Paeth on few rows (they decode byte by byte)
 PNG_FILTERS = (3, 4) + (1, 2, 0) * 300
@@ -2167,6 +2398,14 @@ def main() -> int:
     log(f"kernel nms_suppress at the eval's B=2 K={K}: {eval_ms:.5f} ms per "
         f"launch on the device (CUDA graph), bound {eval_bound_ms:.7f} ms "
         f"({eval_bound_by}) [{card}]")
+    # the grouped eval's shape: 4 images and their mirrors (6c)
+    gb, gv = (t.cuda() for t in fuzz_nms_inputs(8, K, gen))
+    max_err = max(max_err, check_nms_kernel(gb, gv, thresh, "grouped eval shape")[1])
+    group_ms = graph_time_ms(lambda: cuda_nms.nms_suppress_cuda(gb, gv, thresh))
+    group_bound_ms, group_bound_by = nms_bound_ms(8, K)
+    log(f"kernel nms_suppress at the grouped eval's B=8 K={K}: {group_ms:.5f} ms "
+        f"per launch on the device (CUDA graph), bound {group_bound_ms:.7f} ms "
+        f"({group_bound_by}) [{card}]")
 
     # ---- 3. small reference check -------------------------------------------
     check_against_cpu()
@@ -2220,7 +2459,10 @@ def main() -> int:
 
     # ---- 6b. multi-scale COCO eval at full width -----------------------------
     full_eval = full_width_eval(model, cfg, card)
-    del model, predictor, pipe, heads, outs, bench_imgs
+
+    # ---- 6c. every evaluator variant at 6b's width, cli test's images -------
+    variants = eval_variants(model, full_eval, card)
+    del model, predictor, pipe, heads, outs, bench_imgs, full_eval["images"]
     torch.cuda.empty_cache()
 
     # ---- 7. training: CUDA against CPU, then the stage chain at full width ----
@@ -2237,14 +2479,24 @@ def main() -> int:
         "replaces": "multiposenet_tpu/ops/pallas_nms.py:33",
         "tpu_kernel": "multiposenet_tpu/ops/pallas_nms.py::_nms_suppress_kernel",
         "launches": (launches["nms_suppress"] + full_eval["launches"]
-                     + cli["launches"] + deploy["launches"]),
+                     + cli["launches"] + deploy["launches"]
+                     + sum(v["launches"] for v in variants["variants"].values())
+                     + variants["cli_test_launches"]),
         "launches_by_path": {"serving": launches["nms_suppress"],
                              "coco_eval": full_eval["launches"],
                              "coco_eval_check": eval_check["launches"],
+                             "coco_eval_check_host_resize": eval_check["host_resize"],
+                             "coco_eval_check_group_size_2": eval_check["group_size_2"],
+                             **{f"coco_eval_{k}": v["launches"]
+                                for k, v in variants["variants"].items()},
+                             "cli_test": variants["cli_test_launches"],
                              "cli_coco_eval": cli["launches"],
                              "exported_serving": deploy["launches"],
                              "exported_on_cpu": deploy["moved_launches"]},
-        "max_abs_err": max(max_err, full_eval["max_abs_err"]),
+        "eval_variant_ms_per_image": {k: v["ms_per_image"]
+                                      for k, v in variants["variants"].items()},
+        "max_abs_err": max(max_err, full_eval["max_abs_err"],
+                           *(v["max_abs_err"] for v in variants["variants"].values())),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "call_ms": call_ms,
@@ -2258,6 +2510,8 @@ def main() -> int:
         "probe_ms": split,
         "eval_shape_ms": eval_ms,
         "eval_shape_bound_ms": eval_bound_ms,
+        "group_shape_ms": group_ms,
+        "group_shape_bound_ms": group_bound_ms,
         "library_ms": None,
         "build_s": build_s.get(cuda_nms.SOURCE),
     }]

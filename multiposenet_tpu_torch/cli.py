@@ -182,7 +182,8 @@ def cmd_test(args):
         sys.exit(f"error: --testdata directory not found: {args.testdata}")
     _, ev = _load_eval(args)
     ev.cfg = dataclasses.replace(
-        ev.cfg, eval=dataclasses.replace(ev.cfg.eval, write_json=True,
+        ev.cfg, eval=dataclasses.replace(ev.cfg.eval, write_image=True,
+                                         write_json=True,
                                          testdata_dir=args.testdata,
                                          testresult_dir=args.testresult))
     results = ev.test()
@@ -191,6 +192,20 @@ def cmd_test(args):
 
 
 def _apply_eval_flags(ev, args):
+    updates = {}
+    if args.host_resize:
+        updates["device_resize"] = False
+    if args.host_peaks:
+        updates["device_peaks"] = False
+    if args.host_image_resize:
+        updates["device_image_resize"] = False
+    if args.group_size is not None:
+        updates["group_size"] = args.group_size
+    if args.detect_all_scales:
+        updates["detect_scale1_only"] = False
+    if updates:
+        ev.cfg = dataclasses.replace(
+            ev.cfg, eval=dataclasses.replace(ev.cfg.eval, **updates))
     peaks_up, prn_up = {}, {}
     if args.max_peaks is not None:
         peaks_up["max_peaks_per_joint"] = args.max_peaks
@@ -201,6 +216,8 @@ def _apply_eval_flags(ev, args):
         prn_up["escalate_max_people"] = 0
     if args.no_refine:
         peaks_up["refine"] = False
+    if args.host_grouping:
+        prn_up["device_grouping"] = False
     if peaks_up:
         ev.cfg = dataclasses.replace(
             ev.cfg, peaks=dataclasses.replace(ev.cfg.peaks, **peaks_up))
@@ -330,6 +347,29 @@ def main(argv=None):
                          "re-dispatching at the escalated tier)")
     pc.add_argument("--no-refine", action="store_true",
                     help="disable sub-pixel peak refinement (cfg.peaks.refine)")
+    pc.add_argument("--host-resize", action="store_true",
+                    help="resize/average multi-scale heatmaps on the host "
+                         "(reference-exact chain) instead of the cv2-matching "
+                         "on-device matmul path")
+    pc.add_argument("--host-peaks", action="store_true",
+                    help="fetch the averaged heatmap and find peaks on the "
+                         "host (reference y-major peak order) instead of on "
+                         "device after the fold")
+    pc.add_argument("--host-image-resize", action="store_true",
+                    help="build the multi-scale image pyramid with host "
+                         "resizes (one upload per scale) instead of on device "
+                         "from one uploaded original")
+    pc.add_argument("--group-size", type=int, default=None,
+                    help="batch up to N same-bucket images per device "
+                         "dispatch (1 = per-image)")
+    pc.add_argument("--detect-all-scales", action="store_true",
+                    help="run the RetinaNet branch on every scale (the "
+                         "reference-shaped per-scale box lists) instead of "
+                         "scale 1.0 only — results are identical; boxes from "
+                         "other scales are never consumed (tester.py:169)")
+    pc.add_argument("--host-grouping", action="store_true",
+                    help="run the greedy mutual-best assignment on host "
+                         "(reference-exact twin) instead of on device")
     pc.add_argument("--eval-shard", default=None, metavar="I:N",
                     help="process only image slice i::n (then `cli "
                          "merge-results`)")

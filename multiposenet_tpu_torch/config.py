@@ -2,13 +2,14 @@
 (multiposenet_tpu/config.py) cut to the fields this port reads, with
 ``compute_dtype`` as a torch dtype.
 
-The port has one path where the JAX package has switches: the NMS
-suppression always runs as the CUDA kernel on a GPU tensor (ops/cuda_nms.py),
-and the evaluator always builds the image pyramid, resizes and folds the
-heatmaps, finds peaks and groups people on the device, with detections from
-the scale-1.0 forward only.  So there is no ``use_pallas_nms``,
-``device_resize``, ``device_peaks``, ``device_image_resize``, ``group_size``,
-``detect_scale1_only`` or ``device_grouping`` here.
+The NMS suppression always runs as the CUDA kernel on a GPU tensor
+(ops/cuda_nms.py), so there is no ``use_pallas_nms``.  The evaluator's
+switches are the JAX package's, with its defaults: by default it builds the
+image pyramid, resizes and folds the heatmaps, finds peaks and groups
+people on the device, with detections from the scale-1.0 forward only;
+``device_resize``, ``device_peaks``, ``device_image_resize``,
+``detect_scale1_only`` and ``PRNConfig.device_grouping`` turn each step
+back to the reference's host chain, and ``group_size`` batches images.
 """
 
 from __future__ import annotations
@@ -110,6 +111,10 @@ class PRNConfig:
     escalate_max_people: int = 256
     score_window: int = 15          # NxN window around a peak for PRN scoring
     min_num_keypoints: int = 3      # PRN training anns need more keypoints than this
+    # the greedy mutual-best assignment on the device (ops/grouping.py);
+    # False = the PRN stage alone on the device and the reference's
+    # assignment on the host (eval/grouping.group_peaks)
+    device_grouping: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,8 +181,30 @@ class EvalConfig:
     inp_size: int = 480             # model input: square (serving) or scale-1.0 height
     scale_search: Tuple[float, ...] = (0.5, 1.0, 1.5, 2.0, 2.5)
     flip: bool = True               # the mirrored image rides in each scale's batch
+    # resize and average the scales' heatmaps on the device (two matmuls
+    # per scale); False = the reference's cv2 chain on the host
+    # (eval/multiscale.resize_heatmap_to_original), every scale's
+    # heatmaps fetched
+    device_resize: bool = True
+    # with device_resize, find peaks on the device after the fold; False =
+    # fetch the folded (H, W, 18) map and find peaks on the host
+    # (eval/multiscale.find_peaks_np, the reference's y-major order)
+    device_peaks: bool = True
+    # with device_resize, build the image pyramid on the device from one
+    # upload (ops/pyramid.py); False = resize each scale on the host
+    # (eval/multiscale.crop_with_factor) and upload it
+    device_image_resize: bool = True
+    # with the whole device path, dispatch up to this many images whose
+    # bucketed scale shapes match together (engine/grouped_eval.py): one
+    # pyramid, one forward per scale at batch group * 2, one fold + peaks
+    group_size: int = 1
+    # detections (and NMS) on the scale-1.0 forward only, the one scale
+    # whose boxes the eval reads (reference tester.py:169); False = on
+    # every scale
+    detect_scale1_only: bool = True
     testdata_dir: str = "./demo/test_images/"
     testresult_dir: str = "./demo/output/"
+    write_image: bool = False       # test(): <stem>_1heatmap.png, <stem>_2canvas.png
     write_json: bool = False
 
 

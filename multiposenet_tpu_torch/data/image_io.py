@@ -12,6 +12,9 @@ bit depths below 8, interlacing, a chunk whose CRC is wrong) raises.
 Any other format (COCO's JPEGs) goes to cv2 when it is installed; without
 it the read raises a ``RuntimeError`` that names the file.  A missing file
 gives None, as ``cv2.imread`` does.
+
+``write_png`` is ``cv2.imwrite``'s counterpart for PNG: a uint8 gray or BGR
+image as an 8-bit PNG that reads back as the same pixels.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -226,3 +229,39 @@ def read_image(path: str, flags: int = IMREAD_COLOR) -> Optional[np.ndarray]:
             f"{path}: not a PNG file, and reading other formats needs cv2, "
             "which is not installed") from None
     return cv2.imread(path, flags)
+
+
+def write_png(path: str, img: np.ndarray, filters: Sequence[int] = (1,)) -> None:
+    """Write a uint8 (H, W) gray or (H, W, 3) BGR image as an 8-bit PNG
+    whose row r is filtered with ``filters[r % len(filters)]`` (0 None,
+    1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"write_png takes uint8 (H, W) or (H, W, 3), not "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rgb = img[:, :, ::-1] if img.ndim == 3 else img[:, :, None]
+    bpp = rgb.shape[2]
+    x = rgb.reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]                         # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                                   # up
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]                      # up-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    ftype = np.asarray(filters)[np.arange(h) % len(filters)]
+    pred = np.choose(ftype[:, None], [np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    rows = np.concatenate([ftype[:, None], (x - pred) & 255], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             2 if bpp == 3 else 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes(), 6))
+                + chunk(b"IEND", b""))

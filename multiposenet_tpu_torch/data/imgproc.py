@@ -1,19 +1,33 @@
-"""The cv2 operators of the training data path, written from their
-arithmetic in numpy, so that the datasets run where cv2 is not installed.
+"""The cv2 operators of the training data path and of the evaluator's
+host chain, written from their arithmetic in numpy, so that both run where
+cv2 is not installed.
 
 The JAX package augments with ``cv2.resize`` (INTER_CUBIC and INTER_AREA),
 ``cv2.getRotationMatrix2D`` + ``cv2.warpAffine`` (INTER_CUBIC,
 BORDER_CONSTANT) and rasterises COCO polygons with ``cv2.fillPoly``
 (multiposenet_tpu/data/augment.py, rle.py).  Each function here computes
 what that call computes, held against cv2 itself by
-tests/test_torch_port_image_ops.py:
+tests/test_torch_port_image_ops.py and, for the evaluator's host chain
+(``resize_linear`` and the dsize form of ``resize_cubic``, eval/multiscale.py),
+tests/test_torch_port_eval_host.py:
 
-- ``resize_cubic``: cv2 hands a uint8 or float32 INTER_CUBIC resize to
-  Intel IPP, whose result is the separable Keys cubic (A = -0.75, weights
-  from the float64 offset, source coordinate (d + 0.5) / fx - 0.5,
-  replicated borders) summed in float32 and rounded half up.  It equals cv2
-  except where a sum lands within ~1e-5 of x.5 (a few pixels in 10^6, one
-  level).
+- ``resize_cubic``: cv2 hands a uint8 INTER_CUBIC resize, and a float32
+  one of 1, 3 or 4 channels, to Intel IPP, whose result is the separable
+  Keys cubic (A = -0.75, weights from the float64 offset, source
+  coordinate (d + 0.5) / fx - 0.5, replicated borders) summed in float32
+  and rounded half up.  It equals cv2 except where a sum lands within
+  ~1e-5 of x.5 (a few pixels in 10^6, one level).  A float32 image of any
+  other channel count (the evaluator's 18-joint heatmaps) takes OpenCV's
+  own path, which is reproduced exactly: float32 source coordinates and
+  Keys weights, each row's 4 taps summed left to right, then the 4 rows
+  summed as its 4-lane vector loop sums them.
+- ``resize_linear``: ``cv2.resize(img, dsize)``, INTER_LINEAR.  uint8 takes
+  OpenCV's fixed-point path, reproduced exactly: 11-bit weights rounded
+  one by one from float32 offsets, an integer row pass, and the column
+  pass of its vector loop, ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4))
+  >> 16) + 2 >> 2``.  A one-channel float32 image goes to IPP, whose
+  result is reproduced exactly too: ``a + (b - a) * t`` as one fused
+  multiply-add, along each row first, then down each column.
 - ``resize_area_u8``: OpenCV's own INTER_AREA (cv2 does not give it to
   IPP): area-overlap weights summed in float32 and rounded to even when
   shrinking, a block mean when the inverse scale is an integer, and the
@@ -143,16 +157,27 @@ def cubic_taps(n_in: int, n_out: int, f: float):
     return _frozen(idx, _cubic_weights(x - s).astype(np.float32))
 
 
-def resize_cubic(img: np.ndarray, fx: float, fy: float = None,
-                 window: Optional[Window] = None) -> np.ndarray:
+def resize_cubic(img: np.ndarray, fx: Optional[float] = None,
+                 fy: Optional[float] = None, window: Optional[Window] = None,
+                 dsize: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """``cv2.resize(img, (0, 0), fx=fx, fy=fy, interpolation=INTER_CUBIC)``
     for a (H, W) or (H, W, C) uint8 or float32 image (only ``window`` of
-    it, when given)."""
-    fy = fx if fy is None else fy
+    it, when given); with ``dsize=(width, height)`` in place of the
+    factors, ``cv2.resize(img, dsize, interpolation=INTER_CUBIC)``, whose
+    factors are ``dsize / size``."""
     if img.dtype not in (np.uint8, np.float32):
         raise TypeError(f"resize_cubic takes uint8 or float32, not {img.dtype}")
     h, w = img.shape[:2]
-    oh, ow = out_size(h, fy), out_size(w, fx)
+    if dsize is not None:
+        ow, oh = int(dsize[0]), int(dsize[1])
+        fx, fy = ow / w, oh / h
+    else:
+        fy = fx if fy is None else fy
+        oh, ow = out_size(h, fy), out_size(w, fx)
+    if img.dtype == np.float32 and _as_hwc(img).shape[2] not in (1, 3, 4):
+        if window is not None:
+            raise ValueError("resize_cubic takes no window for this image")
+        return _resize_cubic_f32_opencv(img, ow, oh, fx, fy)
 
     def run(src, cols, rows, c0, r0):
         out = _separable(_planes(src), cols[0] - c0, cols[1], rows[0] - r0, rows[1])
@@ -162,6 +187,128 @@ def resize_cubic(img: np.ndarray, fx: float, fy: float = None,
 
     return _windowed(img, window, oh, ow, cubic_taps(w, ow, fx),
                      cubic_taps(h, oh, fy), run)
+
+
+def _coord_f32(n_out: int, inv_scale: float) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenCV's source coordinate of each output along one axis,
+    ``(float)((d + 0.5) * (1 / inv_scale) - 0.5)``, split into its floor
+    (int64) and float32 fraction."""
+    x = ((np.arange(n_out) + 0.5) * (1.0 / inv_scale) - 0.5).astype(np.float32)
+    s = np.floor(x)
+    return s.astype(np.int64), (x - s).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def opencv_cubic_taps(n_in: int, n_out: int, inv_scale: float):
+    """OpenCV's own INTER_CUBIC taps of one axis: the 4 replicated-border
+    source indices and interpolateCubic's float32 weights."""
+    s, t = _coord_f32(n_out, inv_scale)
+    a, one = np.float32(-0.75), np.float32(1)
+    u = t + one
+    w0 = ((a * u - np.float32(5) * a) * u + np.float32(8) * a) * u - np.float32(4) * a
+    w1 = ((a + np.float32(2)) * t - (a + np.float32(3))) * t * t + one
+    v = one - t
+    w2 = ((a + np.float32(2)) * v - (a + np.float32(3))) * v * v + one
+    w3 = one - w0 - w1 - w2
+    idx = np.clip(s[:, None] + np.arange(-1, 3), 0, n_in - 1)
+    return _frozen(idx, np.stack([w0, w1, w2, w3], axis=1).astype(np.float32))
+
+
+def _resize_cubic_f32_opencv(img: np.ndarray, ow: int, oh: int,
+                             fx: float, fy: float) -> np.ndarray:
+    """OpenCV's float32 INTER_CUBIC (resizeGeneric without IPP): per row,
+    ((s0 a0 + s1 a1) + s2 a2) + s3 a3; then per output row, over the
+    row's W * C values, b0 r0 + (b1 r1 + (b2 r2 + b3 r3)) in 4-lane vector
+    steps and ((b0 r0 + b1 r1) + b2 r2) + b3 r3 for the last W * C mod 4."""
+    h, w = img.shape[:2]
+    src = _as_hwc(img)
+    c = src.shape[2]
+    ix, ax = opencv_cubic_taps(w, ow, fx)
+    iy, ay = opencv_cubic_taps(h, oh, fy)
+    rows = src[:, ix[:, 0]] * ax[None, :, 0, None]
+    for k in range(1, 4):
+        rows += src[:, ix[:, k]] * ax[None, :, k, None]
+    rows = rows.reshape(h, ow * c)
+    r = [rows[iy[:, k]] for k in range(4)]
+    b = [ay[:, k, None] for k in range(4)]
+    n_vec = ow * c - (ow * c) % 4
+    out = r[0] * b[0] + (r[1] * b[1] + (r[2] * b[2] + r[3] * b[3]))
+    tail = slice(n_vec, None)
+    out[:, tail] = ((r[0][:, tail] * b[0] + r[1][:, tail] * b[1])
+                    + r[2][:, tail] * b[2]) + r[3][:, tail] * b[3]
+    return out.reshape((oh, ow) + img.shape[2:])
+
+
+# ---------------------------------------------------------------------------
+# INTER_LINEAR resize (the dsize form)
+
+
+@functools.lru_cache(maxsize=64)
+def linear_taps_u8(n_in: int, n_out: int, columns: bool):
+    """OpenCV's fixed-point INTER_LINEAR taps of one axis: (n_out, 2)
+    source indices and 11-bit weights, each weight rounded on its own from
+    the float32 fraction.  Along columns an output before the first pixel
+    or at or past the last takes that pixel at full weight; along rows the
+    fraction stays and the indices are clamped."""
+    s, t = _coord_f32(n_out, n_out / n_in)
+    if columns:
+        edge = (s < 0) | (s >= n_in - 1)
+        t = np.where(edge, np.float32(0), t)
+        s = np.clip(s, 0, n_in - 1)
+    w0 = np.rint((np.float32(1) - t) * np.float32(2048)).astype(np.int32)
+    w1 = np.rint(t * np.float32(2048)).astype(np.int32)
+    idx = np.clip(np.stack([s, s + 1], axis=1), 0, n_in - 1)
+    return _frozen(idx, np.stack([w0, w1], axis=1))
+
+
+@functools.lru_cache(maxsize=64)
+def linear_taps_f32(n_in: int, n_out: int):
+    """IPP's INTER_LINEAR taps of one axis: (n_out, 2) source indices
+    and the float32 fraction of the float64 source coordinate ``(d + 0.5)
+    * (n_in / n_out) - 0.5`` (a fraction just under 1 rounds to 1), an
+    output outside the pixels' span taking the nearest one.  Equal to cv2
+    for inputs of 2 pixels or more along the axis."""
+    x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(x).astype(np.int64)
+    t = (x - s).astype(np.float32)
+    edge = (s < 0) | (s >= n_in - 1)
+    t = np.where(edge, np.float32(0), t)
+    s = np.clip(s, 0, n_in - 1)
+    return _frozen(np.stack([s, np.minimum(s + 1, n_in - 1)], axis=1), t)
+
+
+def _fma_lerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """float32 ``fma(b - a, t, a)``: the product is exact in long double
+    and the sum rounds once there, then to float32."""
+    d = (b - a).astype(np.longdouble)
+    return (d * t + a).astype(np.float32)
+
+
+def resize_linear(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, dsize)`` (INTER_LINEAR), ``dsize=(width,
+    height)``, for a (H, W) or (H, W, C) uint8 image or a (H, W) float32
+    one."""
+    h, w = img.shape[:2]
+    ow, oh = int(dsize[0]), int(dsize[1])
+    if img.dtype == np.float32 and img.ndim == 2:
+        if (oh, ow) == (h, w):
+            return img.copy()
+        (cx, tx), (cy, ty) = linear_taps_f32(w, ow), linear_taps_f32(h, oh)
+        r = _fma_lerp(img[:, cx[:, 0]], img[:, cx[:, 1]], tx[None, :])
+        return _fma_lerp(r[cy[:, 0]], r[cy[:, 1]], ty[:, None])
+    if img.dtype != np.uint8:
+        raise TypeError("resize_linear takes uint8 images or one-channel "
+                        f"float32 ones, not {img.dtype} of shape {img.shape}")
+    if (oh, ow) == (h, w):
+        return img.copy()
+    (cx, ax), (cy, ay) = linear_taps_u8(w, ow, True), linear_taps_u8(h, oh, False)
+    src = _as_hwc(img).astype(np.int32)
+    r = (src[:, cx[:, 0]] * ax[None, :, 0, None]
+         + src[:, cx[:, 1]] * ax[None, :, 1, None]) >> 4
+    out = ((((ay[:, 0, None, None] * r[cy[:, 0]]) >> 16)
+            + ((ay[:, 1, None, None] * r[cy[:, 1]]) >> 16) + 2) >> 2)
+    out = np.clip(out, 0, 255).astype(np.uint8)
+    return out if img.ndim == 3 else out[:, :, 0]
 
 
 # ---------------------------------------------------------------------------

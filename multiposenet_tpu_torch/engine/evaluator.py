@@ -6,16 +6,28 @@ evaluate/tester.py:106-581).
   test()       single-scale demo inference over an image directory
   run_image()  one image of test()
 
-The port has one path, the JAX evaluator's default device path.  Per image:
-one upload of the original; the scale pyramid built on the device
-(ops/pyramid.py); one forward per scale with the mirrored image in the same
-batch, with detections (and so NMS kernel K1) on the scale-1.0 forward only;
-every scale's heatmaps resized to the original resolution by two matmuls,
-summed, flip-folded and searched for peaks on the device (``fold_peaks``);
-then the PRN stage and the greedy assignment on the device, and the result
-rows on the host.  An image whose peak top-k fills every slot of some joint
-is dispatched again at ``cfg.peaks.escalate_max_peaks``; a crowd beyond the
-base PRN capacity is grouped at the escalated (peaks, people) tier.
+By default every step runs on the device, as on the JAX evaluator's default
+path.  Per image: one upload of the original; the scale pyramid built on the
+device (ops/pyramid.py); one forward per scale with the mirrored image in
+the same batch, with detections (and so NMS kernel K1) on the scale-1.0
+forward only; every scale's heatmaps resized to the original resolution by
+two matmuls, summed, flip-folded and searched for peaks on the device
+(``fold_peaks``); then the PRN stage and the greedy assignment on the
+device, and the result rows on the host.  An image whose peak top-k fills
+every slot of some joint is dispatched again at
+``cfg.peaks.escalate_max_peaks``; a crowd beyond the base PRN capacity is
+grouped at the escalated (peaks, people) tier.
+
+The JAX package's switches turn steps back to the reference's host chain
+(eval/multiscale.py, eval/grouping.py), the oracle of the device path:
+``device_image_resize=False`` resizes each scale on the host and uploads
+it; ``detect_scale1_only=False`` runs detections on every scale;
+``device_peaks=False`` fetches the folded map and finds peaks on the host;
+``device_resize=False`` runs the whole reference chain (host-resized scales,
+every scale's heatmaps fetched, resized, averaged and flip-averaged on the
+host, then host peaks); ``prn.device_grouping=False`` assigns on the host.
+``group_size > 1`` dispatches images of one scale-shape signature together
+(engine/grouped_eval.py).
 
 Images come from ``load_image(file_name) -> (H, W, 3) uint8 BGR`` (or None
 for a missing file); the default, ``read_image_bgr``, reads from the image
@@ -23,7 +35,8 @@ directory with ``data/image_io.read_image`` (PNG without cv2).
 
 ``coco_eval`` overlaps images: the calling thread loads and dispatches image
 n + 1 while one worker thread fetches image n's peaks and boxes, groups its
-people and formats them; at most two images are in flight.
+people and formats them; at most two images (or groups) are in flight.  The
+host chain fetches on the calling thread and finishes on the worker.
 """
 
 from __future__ import annotations
@@ -37,14 +50,15 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from multiposenet_tpu_torch.config import Config, PeakConfig, resolve_device
 from multiposenet_tpu_torch.data.coco_json import COCOIndex
-from multiposenet_tpu_torch.data.image_io import read_image
+from multiposenet_tpu_torch.data.image_io import read_image, write_png
+from multiposenet_tpu_torch.data.imgproc import resize_linear
 from multiposenet_tpu_torch.engine.inference import (
     FullPipeline,
     PRNPipeline,
@@ -55,9 +69,18 @@ from multiposenet_tpu_torch.eval.cocoeval import KeypointEval
 from multiposenet_tpu_torch.eval.grouping import (
     drop_neck_reindex,
     format_assignment,
+    group_peaks,
     to_coco_order,
 )
-from multiposenet_tpu_torch.eval.multiscale import SWAP_HEAT_18, get_multipliers
+from multiposenet_tpu_torch.eval.multiscale import (
+    SWAP_HEAT_18,
+    average_flip_heat,
+    crop_with_factor,
+    get_multipliers,
+    joint_list_from_heatmaps,
+    resize_heatmap_to_original,
+)
+from multiposenet_tpu_torch.eval.render import plot_results
 from multiposenet_tpu_torch.models.posenet import PoseNet, build_posenet
 from multiposenet_tpu_torch.ops.grouping import Assignment, assign_peaks
 from multiposenet_tpu_torch.ops.nms import rounded_to
@@ -198,6 +221,15 @@ def fold_peaks(hms, mats, h: int, w: int, with_flip: bool, inv_n: float,
     return PeakSet(*(t[0] for t in peaks))
 
 
+class FoldedHeat(NamedTuple):
+    """One image's (h, w, 18) float32 heatmap average at its original
+    resolution, fetched for the host peak finder: the device's folded map,
+    or the host chain's average of the image's rows with, under flip, the
+    mirrored rows' average apart in ``flip`` (None when folded in)."""
+    heat: np.ndarray
+    flip: Optional[np.ndarray] = None
+
+
 def read_image_bgr(directory: str, file_name: str) -> Optional[np.ndarray]:
     """``cv2.imread(directory/file_name)``: (H, W, 3) uint8 BGR, or None
     when there is no such file (``data/image_io.read_image``: PNG without
@@ -215,7 +247,14 @@ class StageTimes:
     device stage's work (``device_ms``; the span between a stage's events
     includes any time the device waits for the host to enqueue the stage),
     and the host clock (``host_s``) around each stage's enqueue
-    (``"enqueue <stage>"``) and around the host's own work (``"finish"``)."""
+    (``"enqueue <stage>"``) and around the host's own work: ``"finish"``
+    (joint lists, PRN inputs, result rows), and on the host chains
+    ``"host_crop"`` (resizing the scales), ``"host_resize"`` (resizing and
+    averaging the heatmaps), ``"host_peaks"`` and ``"host_grouping"``.
+    Device stages: ``"pyramid"``, ``"upload"`` (host-resized scales),
+    ``"forward <scale>"``, ``"fold_peaks"``, ``"fold"`` (without peaks),
+    ``"fetch"`` (the host chain's heatmap copies), ``"prn_assign"`` and
+    ``"prn"`` (without the assignment)."""
 
     def __init__(self):
         self.events: Dict[str, List[Tuple[torch.cuda.Event, torch.cuda.Event]]] = \
@@ -253,6 +292,7 @@ class Evaluator:
         self.cfg = cfg
         self.model = model
         self._pipelines: Dict[Tuple[int, int, bool, bool], FullPipeline] = {}
+        self._prn: Optional[PRNPipeline] = None
         self._prn_assign: Optional[Callable[..., Assignment]] = None
         self._caches: Dict[str, collections.OrderedDict] = {}
         self._cache_lock = threading.RLock()
@@ -281,29 +321,44 @@ class Evaluator:
                     with_peaks=with_peaks, with_detections=with_detections)
             return self._pipelines[key]
 
+    def prn_pipeline(self) -> Callable[..., tuple]:
+        """(peak_xy, peak_score, peak_valid, boxes_xywh, box_valid) of one
+        image -> (table, inside, prn_out, x0, y0), the PRN stage alone."""
+        with self._cache_lock:
+            if self._prn is None:
+                self._prn = PRNPipeline(self.model, self.cfg)
+            prn = self._prn
+
+        def run(*args):
+            with full_fp32_matmul():
+                return prn(*args)
+        return run
+
     def prn_assign_pipeline(self) -> Callable[..., Assignment]:
         """(peak_xy, peak_score, peak_valid, boxes_xywh, box_valid) of one
         image -> the PRN stage followed by the greedy assignment."""
         with self._cache_lock:
             if self._prn_assign is None:
-                prn = PRNPipeline(self.model, self.cfg)
+                prn = self.prn_pipeline()
 
                 def run(peak_xy, peak_score, peak_valid, boxes, box_valid):
-                    with full_fp32_matmul():
-                        table, inside, prn_out, x0, y0 = prn(
-                            peak_xy, peak_score, peak_valid, boxes, box_valid)
+                    table, inside, prn_out, x0, y0 = prn(
+                        peak_xy, peak_score, peak_valid, boxes, box_valid)
                     return assign_peaks(table, inside, x0, y0, prn_out, boxes)
                 self._prn_assign = run
             return self._prn_assign
 
-    def _lru(self, name: str, key, make):
+    def _lru(self, name: str, key, make, maxn: Optional[int] = None):
+        """Bounded LRU cache ``name``; ``maxn`` (default _DEV_CACHE_MAX)
+        bounds its entries: a group's entries are G stacked and take
+        _DEV_CACHE_MAX // G."""
         with self._cache_lock:
             cache = self._caches.setdefault(name, collections.OrderedDict())
             if key in cache:
                 cache.move_to_end(key)
             else:
                 cache[key] = make()
-                while len(cache) > self._DEV_CACHE_MAX:
+                while len(cache) > (maxn or self._DEV_CACHE_MAX):
                     cache.popitem(last=False)
             return cache[key]
 
@@ -383,50 +438,97 @@ class Evaluator:
     # ------------------------------------------------------------------
     # one image of the multi-scale eval
 
+    def _boxes_kept(self, dets, row: int = 0) -> List[torch.Tensor]:
+        """[boxes (K, 4) float32, keep (K,)] of one batch row's detections:
+        x1y1x2y2 boxes of the resized image and whether each scores above
+        the test threshold (reference tester.py:169, 233-241)."""
+        keep = dets.scores[row] > rounded_to(
+            self.cfg.detection.test_score_thresh, dets.scores.dtype)
+        return [dets.boxes[row].float(), keep]
+
+    def _host_scales(self, multipliers: Sequence[float], img: np.ndarray,
+                     bucket: int, with_flip: bool):
+        """Each scale resized and padded on the host (``crop_with_factor``,
+        reference tester.py:285-291), with the mirrored image's in the same
+        batch, and uploaded: ((padded (H, W), resized (h, w), im_scale) per
+        scale, the (1 or 2, H, W, 3) uint8 RGB batches on the device)."""
+        img_f = img[:, ::-1] if with_flip else None
+        scales, batches = [], []
+        for m in multipliers:
+            with self._host_stage("host_crop"):
+                dest = m * img.shape[0]
+                cropped, im_scale, real = crop_with_factor(
+                    img, dest, factor=32, pad_val=128, bucket=bucket)
+                rows = [cropped[:, :, ::-1]]
+                if with_flip:
+                    rows.append(crop_with_factor(img_f, dest, factor=32, pad_val=128,
+                                                 bucket=bucket)[0][:, :, ::-1])
+                batch = np.stack(rows)
+            with self._stage("upload"):
+                batches.append(self._upload(batch))
+            scales.append((cropped.shape[:2], tuple(real[:2]), im_scale))
+        return scales, batches
+
     def _dispatch_image_device(self, multipliers: Sequence[float],
                                img: np.ndarray, bucket: int = 64,
                                with_flip: bool = False,
                                max_peaks: Optional[int] = None):
-        """Enqueue all of one image's device work and the copies of its
-        peaks and scale-1.0 boxes to the host; returns the handle for
+        """Enqueue all of one image's device work and the copies of what the
+        host reads — its peaks (or, with ``device_peaks`` off, its folded
+        map) and scale-1.0 boxes; returns the handle for
         ``_fetch_image_device``."""
+        ecfg = self.cfg.eval
         h, w = img.shape[:2]
         pad_to = max(bucket, 1)
         hp = -(-h // pad_to) * pad_to
         wp = -(-w // pad_to) * pad_to
-        taps = self._pyramid_taps(h, w, [m * h for m in multipliers], bucket,
-                                  with_flip)
-        with self._stage("pyramid"):
-            batches = build_pyramid(self._upload(img[:, :, ::-1]), taps)
-        det_idx = det_scale_idx(len(taps))
+        if ecfg.device_image_resize:
+            taps = self._pyramid_taps(h, w, [m * h for m in multipliers], bucket,
+                                      with_flip)
+            with self._stage("pyramid"):
+                batches = build_pyramid(self._upload(img[:, :, ::-1]), taps)
+            scales = [(t.padded_hw, t.real_hw, t.im_scale) for t in taps]
+        else:
+            scales, batches = self._host_scales(multipliers, img, bucket, with_flip)
+        det_idx = det_scale_idx(len(scales))
         hms, mats = [], []
-        for s, (t, batch) in enumerate(zip(taps, batches)):
-            (dh, dw), (rh, rw) = t.padded_hw, t.real_hw
+        for s, (((dh, dw), (rh, rw), im_scale), batch) in enumerate(
+                zip(scales, batches)):
             mats.append(self._resize_mats_dev(dh // 4, dw // 4, rh, rw, h, w,
                                               hp, wp))
+            # the other scales' boxes, with detect_scale1_only off, are
+            # computed and not read, as in the reference
+            wd = s == det_idx or not ecfg.detect_scale1_only
             with self._stage(f"forward {s}"):
                 out = self.pipeline((dh, dw), with_peaks=False,
-                                    with_detections=s == det_idx)(batch)
+                                    with_detections=wd)(batch)
             hms.append(out.heatmaps)
             if s == det_idx:
-                dets, im_scale = out.detections, t.im_scale
-        with self._stage("fold_peaks"):
-            pk = fold_peaks(hms, mats, h, w, with_flip, 1.0 / len(multipliers),
-                            self.cfg.peaks, max_peaks)
-            # boxes from row 0 (the image, not its mirror) above the test
-            # threshold, as the reference reads them (tester.py:169)
-            keep = dets.scores[0] > rounded_to(
-                self.cfg.detection.test_score_thresh, dets.scores.dtype)
-            fetched = self._to_host([pk.coords, pk.scores, pk.valid,
-                                     dets.boxes[0].float(), keep])
-        return fetched, im_scale
+                dets, det_scale = out.detections, im_scale
+        inv_n = 1.0 / len(multipliers)
+        if ecfg.device_peaks:
+            with self._stage("fold_peaks"):
+                pk = fold_peaks(hms, mats, h, w, with_flip, inv_n, self.cfg.peaks,
+                                max_peaks)
+                fetched = self._to_host([pk.coords, pk.scores, pk.valid]
+                                        + self._boxes_kept(dets))
+            return fetched, det_scale, None
+        with self._stage("fold"):
+            heat = fold_heat(hms, mats, h, w, with_flip, inv_n)
+            fetched = self._to_host([heat] + self._boxes_kept(dets))
+        return fetched, det_scale, (h, w)
 
     def _fetch_image_device(self, handle):
-        """-> (scale-1.0 boxes x1y1x2y2 in original pixels, (coords,
-        scores, valid) peak arrays in original pixels)."""
-        fetched, im_scale = handle
-        coords, scores, valid, boxes, keep = self._wait(fetched)
-        return (boxes[keep] / im_scale).tolist(), (coords, scores, valid)
+        """-> (scale-1.0 boxes x1y1x2y2 in original pixels, the (coords,
+        scores, valid) peak arrays in original pixels or, with
+        ``device_peaks`` off, the folded map as a ``FoldedHeat``)."""
+        fetched, im_scale, hw = handle
+        *found, boxes, keep = self._wait(fetched)
+        boxes = (boxes[keep] / im_scale).tolist()
+        if hw is None:
+            return boxes, tuple(found)
+        # the padded map cut to the image on the host
+        return boxes, FoldedHeat(found[0][:hw[0], :hw[1]])
 
     def _get_outputs_device(self, multipliers: Sequence[float],
                             img: np.ndarray, bucket: int = 64,
@@ -434,19 +536,61 @@ class Evaluator:
         return self._fetch_image_device(self._dispatch_image_device(
             multipliers, img, bucket=bucket, with_flip=with_flip))
 
+    def _get_outputs_host(self, multipliers: Sequence[float], img: np.ndarray,
+                          bucket: int = 64, with_flip: bool = False):
+        """The reference's chain (``device_resize`` off; reference
+        tester.py:131-193, 264-316): each scale resized on the host and
+        uploaded, one forward with detections per scale, one fetch of every
+        scale's heatmaps, each resized to the original resolution on the
+        host and averaged, the mirrored rows apart.  -> (scale-1.0 boxes,
+        ``FoldedHeat(average, mirrored average or None)``)."""
+        scales, batches = self._host_scales(multipliers, img, bucket, with_flip)
+        det_idx = det_scale_idx(len(scales))
+        hms = []
+        for s, ((hw, _, im_scale), batch) in enumerate(zip(scales, batches)):
+            with self._stage(f"forward {s}"):
+                out = self.pipeline(hw, with_peaks=False)(batch)
+            hms.append(out.heatmaps)
+            if s == det_idx:
+                dets, det_scale = out.detections, im_scale
+        with self._stage("fetch"):
+            fetched = self._to_host([hm.float() for hm in hms]
+                                    + self._boxes_kept(dets))
+        *maps, boxes, keep = self._wait(fetched)
+        with self._host_stage("host_resize"):
+            n = len(multipliers)
+            heat = np.zeros(img.shape[:2] + (18,), np.float32)
+            flip = np.zeros_like(heat) if with_flip else None
+            for hm, (hw, real, _) in zip(maps, scales):
+                heat += resize_heatmap_to_original(hm[0], hw, real, img.shape) / n
+                if with_flip:
+                    flip += resize_heatmap_to_original(hm[1], hw, real, img.shape) / n
+        return (boxes[keep] / det_scale).tolist(), FoldedHeat(heat, flip)
+
     def _peak_escalation_tier(self) -> int:
-        """The escalated per-joint peak capacity, or 0 when it is off."""
+        """The escalated per-joint peak capacity, or 0 when it is off (or
+        peaks are found on the host, whose lists are unbounded)."""
         esc = self.cfg.peaks.escalate_max_peaks
-        return esc if esc > self.cfg.peaks.max_peaks_per_joint else 0
+        if (self.cfg.eval.device_peaks and self.cfg.eval.device_resize
+                and esc > self.cfg.peaks.max_peaks_per_joint):
+            return esc
+        return 0
 
     def _fetch_finish_escalating(self, handle, img: np.ndarray,
                                  multipliers: Sequence[float], bucket: int,
                                  name: str, img_id: int) -> List[Dict]:
-        """Fetch one dispatched image and finish it — after dispatching the
-        whole image again at the escalated peak capacity when some joint
-        filled every slot of the base tier (the reference's peak lists are
-        unbounded, tester.py:338-350)."""
-        boxes, peaks = self._fetch_image_device(handle)
+        """Fetch one dispatched image and finish it (``_finish_escalating``)."""
+        return self._finish_escalating(self._fetch_image_device(handle), img,
+                                       multipliers, bucket, name, img_id)
+
+    def _finish_escalating(self, outputs, img: np.ndarray,
+                           multipliers: Sequence[float], bucket: int,
+                           name: str, img_id: int) -> List[Dict]:
+        """Finish one fetched image — after dispatching it again alone at
+        the escalated peak capacity when some joint filled every slot of
+        the base tier (the reference's peak lists are unbounded,
+        tester.py:338-350)."""
+        boxes, peaks = outputs
         esc = self._peak_escalation_tier()
         if esc and bool(peaks[2].all(axis=-1).any()):
             logger.info("%s: peak capacity %d saturated — re-dispatching at "
@@ -458,12 +602,22 @@ class Evaluator:
                 max_peaks=esc))
         return self._finish_image(boxes, peaks, name, img_id)
 
-    def _finish_image(self, boxes: List[List[float]], peaks, name: str,
+    def _finish_image(self, boxes: List[List[float]], found, name: str,
                       img_id: int) -> List[Dict]:
-        """Peak arrays + scale-1.0 boxes -> the image's COCO result rows
-        (reference tester.py:151-177)."""
+        """Peak arrays, or a ``FoldedHeat`` to find peaks in on the host, +
+        scale-1.0 boxes -> the image's COCO result rows (reference
+        tester.py:151-177)."""
+        if isinstance(found, FoldedHeat):
+            with self._host_stage("host_peaks"):
+                heat = (found.heat if found.flip is None
+                        else average_flip_heat(found.heat, found.flip))
+                jl = joint_list_from_heatmaps(
+                    heat[:, :, :18], heat.shape[0], 1.0, self.cfg.peaks.thre1,
+                    refine=self.cfg.peaks.refine)
+        else:
+            with self._host_stage("finish"):
+                jl = np.asarray(peak_arrays_to_joint_list(*found)).reshape(-1, 5)
         with self._host_stage("finish"):
-            jl = np.asarray(peak_arrays_to_joint_list(*peaks)).reshape(-1, 5)
             joints = drop_neck(jl)
         results = self.prn_process(joints, boxes, name, img_id)
         with self._host_stage("finish"):
@@ -527,9 +681,20 @@ class Evaluator:
             peak_xy, peak_score, peak_valid = _joints_to_peak_arrays(
                 joint_list, maxp, context=context)
 
+        args = (peak_xy, peak_score, peak_valid, boxes_pad, box_valid)
+        if not self.cfg.prn.device_grouping:
+            with self._stage("prn"):
+                table, inside, prn_out, x0, y0 = self.prn_pipeline()(
+                    *(self._upload(x) for x in args))
+                fetched = self._to_host([table, inside, prn_out.float(), x0, y0])
+            table, inside, prn_out, x0, y0 = self._wait(fetched)
+            with self._host_stage("host_grouping"):
+                return group_peaks(
+                    table[:nb], inside[:nb], x0[:nb], y0[:nb], prn_out[:nb],
+                    peak_xy, peak_valid, boxes[:nb], file_name=file_name,
+                    image_id=image_id)
         with self._stage("prn_assign"):
-            a = self.prn_assign_pipeline()(*(self._upload(x) for x in (
-                peak_xy, peak_score, peak_valid, boxes_pad, box_valid)))
+            a = self.prn_assign_pipeline()(*(self._upload(x) for x in args))
             fetched = self._to_host([a.chosen, a.active, a.fallback_xy])
         chosen, active, fallback_xy = self._wait(fetched)
         with self._host_stage("finish"):
@@ -577,7 +742,11 @@ class Evaluator:
              load_image: Optional[Callable[[str], Optional[np.ndarray]]] = None
              ) -> List[Dict]:
         """``run_image`` over every readable file of ``testdata_dir`` in
-        name order; with ``cfg.eval.write_json`` the rows are written to
+        name order.  With ``cfg.eval.write_image`` each image's heatmap (the
+        joints' maximum, INTER_LINEAR to the image's size, times 256, to
+        uint8 as cv2.imwrite converts float32) and its people drawn on it
+        are written to ``testresult_dir/<stem>_1heatmap.png`` and
+        ``<stem>_2canvas.png``; with ``cfg.eval.write_json`` the rows to
         ``testresult_dir/multipose_results.json``."""
         cfg = self.cfg.eval
         testdata_dir = testdata_dir or cfg.testdata_dir
@@ -589,7 +758,15 @@ class Evaluator:
             img = load_image(name)
             if img is None:
                 continue
-            all_results.extend(self.run_image(img, name)[0])
+            results, heatmaps = self.run_image(img, name)
+            all_results.extend(results)
+            if cfg.write_image:
+                os.makedirs(testresult_dir, exist_ok=True)
+                stem = os.path.join(testresult_dir, name.split(".", 1)[0])
+                hm = resize_linear(np.max(heatmaps, 2), (img.shape[1], img.shape[0]))
+                write_png(stem + "_1heatmap.png",
+                          np.clip(np.rint(hm * 256), 0, 255).astype(np.uint8))
+                write_png(stem + "_2canvas.png", plot_results(img.copy(), results))
         if cfg.write_json:
             os.makedirs(testresult_dir, exist_ok=True)
             with open(os.path.join(testresult_dir, "multipose_results.json"),
@@ -653,10 +830,45 @@ class Evaluator:
 
     def _coco_eval_loop(self, gt: COCOIndex, img_ids: Sequence[int],
                         load_image, bucket: int) -> List[Dict]:
+        from multiposenet_tpu_torch.engine import grouped_eval
+
         cfg = self.cfg
+        gs = cfg.eval.group_size
+        use_groups = grouped_eval.use_groups(self)
+        if use_groups:
+            # images of one size arrive together; a group is still keyed on
+            # the loaded image's size (a wrong record costs a padded flush)
+            recs = {r["id"]: r for r in gt.load_imgs(img_ids)}
+            img_ids = sorted(img_ids, key=lambda i: (
+                int(recs[i].get("height", 0)), int(recs[i].get("width", 0))))
         results: List[Dict] = []
         futures = []
+        pending: Dict[tuple, list] = {}   # signature -> [(img, name, id), ...]
+
+        def finish_group(handle, group):
+            res = []
+            for out, (img, name, img_id) in zip(
+                    grouped_eval.fetch_group_device(self, handle), group):
+                mult = get_multipliers(img.shape[0], cfg.eval.inp_size,
+                                       cfg.eval.scale_search)
+                res.extend(self._finish_escalating(out, img, mult, bucket, name,
+                                                   img_id))
+            return res
+
         with ThreadPoolExecutor(max_workers=1) as pool:
+
+            def flush(sig):
+                group = pending.pop(sig)
+                # replicas of the last image fill a partial group, so that
+                # every group runs at one batch size; their rows are dropped
+                imgs = [g[0] for g in group]
+                imgs += [imgs[-1]] * (gs - len(imgs))
+                with torch.no_grad():
+                    handle = grouped_eval.dispatch_group_device(
+                        self, imgs, bucket, cfg.eval.flip)
+                futures.append(pool.submit(self._worker, finish_group, handle,
+                                           group))
+
             for n, img_id in enumerate(img_ids):
                 name = gt.load_imgs(img_id)[0]["file_name"]
                 ori = load_image(name)
@@ -664,16 +876,33 @@ class Evaluator:
                     raise FileNotFoundError(f"cannot read image {name!r}")
                 mult = get_multipliers(ori.shape[0], cfg.eval.inp_size,
                                        cfg.eval.scale_search)
-                with torch.no_grad():
-                    handle = self._dispatch_image_device(
-                        mult, ori, bucket=bucket, with_flip=cfg.eval.flip)
-                futures.append(pool.submit(
-                    self._worker, self._fetch_finish_escalating, handle, ori,
-                    mult, bucket, name, img_id))
+                if use_groups:
+                    sig = grouped_eval.group_signature(self, *ori.shape[:2], bucket)
+                    # sorted arrival: no other signature fills any more
+                    for other in [k for k in pending if k != sig]:
+                        flush(other)
+                    pending.setdefault(sig, []).append((ori, name, img_id))
+                    if len(pending[sig]) == gs:
+                        flush(sig)
+                elif cfg.eval.device_resize:
+                    with torch.no_grad():
+                        handle = self._dispatch_image_device(
+                            mult, ori, bucket=bucket, with_flip=cfg.eval.flip)
+                    futures.append(pool.submit(
+                        self._worker, self._fetch_finish_escalating, handle, ori,
+                        mult, bucket, name, img_id))
+                else:
+                    with torch.no_grad():
+                        boxes, heat = self._get_outputs_host(
+                            mult, ori, bucket=bucket, with_flip=cfg.eval.flip)
+                    futures.append(pool.submit(
+                        self._worker, self._finish_image, boxes, heat, name, img_id))
                 while len(futures) > 2:
                     results.extend(futures.pop(0).result())
                 if (n + 1) % 50 == 0:
                     logger.info("coco_eval %d/%d images", n + 1, len(img_ids))
+            for sig in list(pending):
+                flush(sig)
             for f in futures:
                 results.extend(f.result())
         return results

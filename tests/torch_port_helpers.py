@@ -150,14 +150,17 @@ def synthetic_coco(root: str, people_per_image, hw=(160, 224)):
 class GTForward:
     """Stands in for the network forward of the JAX and the port evaluator
     in a multi-scale eval: for a (B, H, W, 3) batch it returns GT-derived
-    stride-4 heatmaps (row 0 the image, row 1 its mirror with left/right
-    joints swapped) and the GT boxes at the batch's scale, score 0.9.  The
-    image is read from the batch's pixel value and the scale from its shape,
-    so the stub keeps no call order and also serves an escalation's second
-    dispatch from the evaluator's worker thread.  ``calls`` counts the
-    forwards per image."""
+    stride-4 heatmaps (with ``flip``, every odd row is the mirror of the row
+    before, its left/right joints swapped) and the GT boxes at the batch's
+    scale, score 0.9 (padded with score-0 boxes to the batch's most).  Each
+    row's image is read from its pixel value and the scale from the batch
+    shape, so the stub keeps no call order, serves an escalation's second
+    dispatch from the evaluator's worker thread, and serves a grouped
+    dispatch's batch of several images.  ``calls`` counts the forwards
+    each image rode in."""
 
-    def __init__(self, gt: dict, inp_size: int, scale_search, bucket: int = 64):
+    def __init__(self, gt: dict, inp_size: int, scale_search, bucket: int = 64,
+                 flip: bool = True):
         import collections
 
         from multiposenet_tpu.data.augment import FLIP_ORDER_18
@@ -165,6 +168,7 @@ class GTForward:
         from multiposenet_tpu.eval.multiscale import crop_shape_only, get_multipliers
 
         self.flip_order = FLIP_ORDER_18
+        self.flip = flip
         self.images = {}
         for rec in gt["images"]:
             h, w = rec["height"], rec["width"]
@@ -191,20 +195,26 @@ class GTForward:
     def __call__(self, batch: np.ndarray):
         from multiposenet_tpu.ops.heatmap import make_heatmaps_np
 
-        img_id, joints, boxes, w, scales = self.images[int(batch[0, 0, 0, 0])]
-        self.calls[img_id] += 1
         bs, dh, dw = batch.shape[:3]
-        s = scales[(dh, dw)]
+        nb = 2 if self.flip else 1
+        per_row = [self.images[int(batch[row, 0, 0, 0])] for row in range(bs)]
+        for img_id in {r[0] for r in per_row}:
+            self.calls[img_id] += 1
+        k = max(len(r[2]) for r in per_row)
         rows = []
-        for row in range(bs):
+        bx = np.zeros((bs, k, 4), np.float32)
+        sc = np.zeros((bs, k), np.float32)
+        for row, (_, joints, boxes, w, scales) in enumerate(per_row):
+            s = scales[(dh, dw)]
             j = joints.copy()
-            if row == 1:
+            if row % nb == 1:
                 j = j[:, self.flip_order]
                 j[:, :, 0] = w - 1 - j[:, :, 0]
             j[:, :, :2] *= s
             rows.append(make_heatmaps_np(j, dh // 4, dw // 4, stride=4, sigma=6.0))
-        bx = np.repeat((boxes * np.float32(s))[None], bs, 0)
-        return np.stack(rows), bx, np.full(bx.shape[:2], 0.9, np.float32)
+            bx[row, :len(boxes)] = boxes * np.float32(s)
+            sc[row, :len(boxes)] = 0.9
+        return np.stack(rows), bx, sc
 
     def jax_pipeline(self, hw, with_peaks=True, with_detections=True):
         """``Evaluator.pipeline`` of the JAX package."""
