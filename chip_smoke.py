@@ -100,7 +100,26 @@ Phases (any failure exits non-zero, and no result line is printed):
               test on a PNG directory, and merge-results again through a
               ``python -m multiposenet_tpu_torch.cli`` subprocess; every
               loss finite, every checkpoint restoring, NMS launched at
-              least once per coco-eval image.
+              least once per coco-eval image;
+  9. dist     several processes on the one card: 9a the dry run
+              (parallel/dryrun.dryrun_multichip) over 2 processes with
+              backend gloo (NCCL refuses two processes on one GPU), resnet50
+              64 px, TF32 off and deterministic cuDNN: each stage's
+              2-process step equal to the 1-process step within max(1e-5,
+              5e-6 sqrt(2)), BatchNorm statistics equal, the mesh-sharded
+              e2e batch with K1 held against its twin; then a one-process
+              NCCL group: a DDP keypoint step, a broadcast, gather_objects;
+              9b the keypoint stage at the reference's configuration
+              (ResNet-101 float32, 480 px, global batch 6) as 2 processes x
+              3 over gloo, timed, with the gradient all-reduce timed by a
+              DDP communication hook; 9c coco_eval auto-sharded over 2
+              processes at 6b's configuration on 6b's images, stats and
+              rows equal to one process's (deterministic cuDNN in both),
+              a first pass in each new process whose K1 inputs are held
+              against the twin there, then a timed pass equal to it; 9d
+              BatchPredictor on a mesh of two entries of the card at batch
+              16 on phase 4's 40 images, rows equal to an unsharded
+              predictor's at the per-device batch 8.
 
 Training reaches no hand-written kernel: the conv stack runs on cuDNN, the
 rest as PyTorch ops.  The weights are random, drawn from a seed; the detection output convs are
@@ -2295,6 +2314,376 @@ def cli_phase(card: str, device: str = "cuda", backbone: str = "resnet101",
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 9
+
+DIST_RANKS = 2
+DIST_KP_STEPS = (3, 10)      # 9b: warm-up and timed steps
+
+
+def _counting_ddp(made: list):
+    """A DistributedDataParallel that the train steps build (their module
+    global is replaced in this process) and that appends itself to
+    ``made``."""
+    from multiposenet_tpu_torch.engine import train_steps
+
+    base = train_steps.DistributedDataParallel
+
+    class Counted(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    train_steps.DistributedDataParallel = Counted
+
+
+def nccl_rank() -> dict:
+    """9a, in a one-process NCCL group: one keypoint step through DDP
+    (resnet50, 64 px, the dry run's batch), a broadcast and gather_objects,
+    every collective over NCCL."""
+    import torch.distributed as tdist
+
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+    from multiposenet_tpu_torch.parallel.dryrun import (
+        dryrun_batches, dryrun_config, exact_math, stage_step)
+
+    if tdist.get_backend() != "nccl":
+        raise AssertionError(f"backend {tdist.get_backend()}, expected nccl")
+    made = []
+    _counting_ddp(made)
+    dev = pdist.process_device()
+    cfg = dryrun_config(64)
+    with exact_math():
+        loss, _, _ = stage_step(cfg, "keypoint", 0,
+                                dryrun_batches(1, 64, cfg)["keypoint"], dev)
+    if len(made) != 1 or not np.isfinite(loss):
+        raise AssertionError(f"{len(made)} DDP modules, loss {loss}")
+    t = torch.arange(4, dtype=torch.float32, device=dev) * (pdist.process_index() + 1)
+    tdist.broadcast(t, src=0)
+    gathered = pdist.gather_objects({"rank": pdist.process_index(), "loss": loss})
+    return {"backend": tdist.get_backend(), "device": str(dev), "loss": loss,
+            "broadcast": t.tolist(), "gathered": gathered}
+
+
+def dist_keypoint_rank(cfg, steps) -> dict:
+    """9b, in each process: the keypoint stage's train step on this
+    process's share of the global batch, ``steps`` = (warm-up, timed);
+    the gradient all-reduce timed by a DDP communication hook (host wall
+    from a bucket's hand-off to its reduced gradient, summed over the
+    step's buckets; they overlap the backward).  Then the same timed steps
+    with BatchNorm on each process's own batch (``local_bn``), which takes
+    the statistics all-reduces out of the step."""
+    import torch.distributed as tdist
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    from multiposenet_tpu_torch.engine import train_steps
+    from multiposenet_tpu_torch.models.fpn import BatchNorm
+    from multiposenet_tpu_torch.models.posenet import build_trainable_posenet
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+
+    comm = []
+
+    def timed_allreduce(_state, bucket):
+        t0 = time.perf_counter()
+
+        def done(fut):
+            comm.append(time.perf_counter() - t0)
+            return fut.value()
+        return default_hooks.allreduce_hook(None, bucket).then(done)
+
+    made = []
+    _counting_ddp(made)
+    rank, n = pdist.process_index(), pdist.process_count()
+    dev = pdist.process_device()
+    model = build_trainable_posenet(cfg.model, dev, seed=SEED)
+    state = train_steps.create_train_state(cfg, "keypoint", model=model)
+    step, _ = train_steps.make_keypoint_steps(cfg, device=dev)
+    rng = np.random.RandomState(SEED + 9 + rank)
+    local = cfg.train.batch_size // n
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                train_batch("keypoint", cfg, local, rng).items()} for _ in range(2)]
+    warm, timed = steps
+    step(state, batches[0], CHECK_LR)
+    made[0].register_comm_hook(None, timed_allreduce)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm) and m.global_stats]
+
+    def run(n_warm: int) -> dict:
+        """n_warm untimed steps, then ``timed`` timed ones."""
+        for i in range(n_warm):
+            step(state, batches[i % 2], CHECK_LR)
+        torch.cuda.synchronize()
+        tdist.barrier()
+        comm.clear()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        losses = []
+        for i in range(timed):
+            _, logs = step(state, batches[i % 2], CHECK_LR)
+            losses.append(logs["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite keypoint losses {losses}")
+        return {"ms_per_step": wall / timed * 1e3,
+                "event_ms_per_step": start.elapsed_time(end) / timed,
+                "allreduce_ms_per_step": sum(comm) / timed * 1e3,
+                "buckets_per_step": len(comm) / timed}
+
+    out = run(warm - 1)
+    # the same steps with each process's BatchNorm on its own batch: the
+    # difference is what the statistics all-reduces (one per BatchNorm
+    # layer in the forward, one in the backward) cost a step
+    for m in bns:
+        m.global_stats = False
+    out["local_bn"] = run(2)
+    grad_numel = sum(p.numel() for p in state.trainable_parameters())
+    out.update(bn_allreduces_per_step=2 * len(bns), grad_mb=grad_numel * 4 / 1e6,
+               local_batch=local,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    return out
+
+
+def dist_eval_rank(state_path: str, cfg, images, gt) -> dict:
+    """9c, in each process: coco_eval over 6b's images with no explicit
+    shard (the process group shards them), deterministic cuDNN, twice: a
+    first pass in the new process, whose K1 inputs are recorded and held
+    against the plain twin here, then a timed pass that must give the same
+    stats and rows."""
+    import tempfile
+
+    from multiposenet_tpu_torch.engine.evaluator import Evaluator
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+    from multiposenet_tpu_torch.ops import cuda_nms
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+
+    rank = pdist.process_index()
+    dev = pdist.process_device()
+    model = build_posenet(cfg.model, dev, torch.load(state_path))
+    ev = Evaluator(cfg, model=model, device=dev)
+    by_name = {rec["file_name"]: img for rec, img in zip(gt["images"], images)}
+    passes = []
+    with tempfile.TemporaryDirectory() as d, deterministic_cudnn():
+        ann_file = os.path.join(d, "gt.json")
+        result_file = os.path.join(d, "results.json")
+        with open(ann_file, "w") as f:
+            json.dump(gt, f)
+        for first in (True, False):
+            if first:
+                calls, restore = record_nms_inputs()
+            cuda_nms.launches = 0
+            t0 = time.perf_counter()
+            try:
+                metrics = ev.coco_eval(ann_file=ann_file, result_file=result_file,
+                                       load_image=by_name.__getitem__)
+            finally:
+                if first:
+                    restore()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rows = None
+            if os.path.exists(result_file):
+                with open(result_file) as f:
+                    rows = json.load(f)
+                os.unlink(result_file)
+            passes.append((metrics, rows, wall, cuda_nms.launches))
+    (metrics, rows, first_s, _), (metrics2, rows2, wall, launches) = passes
+    if (metrics2, rows2) != (metrics, rows):
+        raise AssertionError(f"process {rank}: the second pass differs")
+    n_local = len(range(rank, len(images), pdist.process_count()))
+    if launches != n_local + len(ev.escalated):
+        raise AssertionError(f"process {rank}: K1 launched {launches} times for "
+                             f"{n_local} images + {len(ev.escalated)} escalated")
+    err = check_eval_nms_inputs(calls, cfg.detection.max_detections,
+                                label=f"distributed eval, process {rank}")
+    return {"metrics": metrics, "rows": rows, "launches": launches,
+            "max_abs_err": err, "images": n_local,
+            "escalated": len(ev.escalated), "wall_s": wall, "first_s": first_s}
+
+
+def sorted_rows(rows):
+    return sorted(rows, key=lambda r: (r["image_id"], -r["score"], r["keypoints"]))
+
+
+def distributed_phase(card: str, serve_state: dict, serve_cfg, serve_images,
+                      eval_inputs: dict, one_process_kp_ms: float,
+                      device: str = "cuda", kp_cfg=None) -> dict:
+    """Phase 9: several processes on the one H100.  9a the dry run over 2
+    processes (gloo: NCCL refuses two processes on one GPU) and a
+    one-process NCCL group; 9b the keypoint stage at its reference
+    configuration as 2 processes x 3; 9c auto-sharded coco_eval in 2
+    processes against one process; 9d BatchPredictor on a mesh of two
+    entries of the card against an unsharded predictor.  ``device`` and a
+    smaller ``kp_cfg`` (9b's configuration) serve a rehearsal on the CPU."""
+    import tempfile
+
+    from multiposenet_tpu_torch.config import keypoint_train_config
+    from multiposenet_tpu_torch.engine.evaluator import Evaluator
+    from multiposenet_tpu_torch.engine.predictor import BatchPredictor
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+    from multiposenet_tpu_torch.ops import cuda_nms
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+    from multiposenet_tpu_torch.parallel import make_mesh
+    from multiposenet_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    out = {"max_abs_err": 0}
+
+    # ---- 9a: the dry run, then NCCL in a group of one
+    log("dist: 9a dryrun_multichip(2) on cuda:0 with backend gloo, explicit "
+        "(NCCL refuses two processes on one GPU)")
+    calls, restore = record_nms_inputs()
+    cuda_nms.launches = 0
+    t0 = time.perf_counter()
+    try:
+        dry = dryrun_multichip(DIST_RANKS, size=64, device=device, backend="gloo",
+                               timeout=600)
+    finally:
+        restore()
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_e2e_launches"] = cuda_nms.launches
+    if cuda_nms.launches != DIST_RANKS:
+        raise AssertionError(f"dry run's sharded e2e batch launched K1 "
+                             f"{cuda_nms.launches} times, expected {DIST_RANKS}")
+    for boxes, valid, thresh in calls:
+        out["max_abs_err"] = max(out["max_abs_err"], check_nms_kernel(
+            boxes, valid, thresh, "dry run e2e candidates")[1])
+    log("dist: 9a dry run " + "; ".join(
+        f"{s} |dloss| {dry[s]['dloss']:.2e} max|dparams| {dry[s]['dparams']:.2e}"
+        for s in ("keypoint", "detection", "prn"))
+        + f" (bound {dry['tol']:.1e}); BN statistics equal; K1 "
+        f"{out['dryrun_e2e_launches']} launches; {out['dryrun_s']:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    (nccl,) = pdist.spawn_ranks(nccl_rank, 1, device=device, timeout=300)
+    if nccl["gathered"] != [{"rank": 0, "loss": nccl["loss"]}] \
+            or nccl["broadcast"] != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError(f"NCCL group: {nccl}")
+    log(f"dist: 9a one-process {nccl['backend']} group on {nccl['device']}: DDP "
+        f"keypoint step loss {nccl['loss']:.5f}, broadcast and gather_objects "
+        f"ok in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9b: the keypoint stage at full width, 2 processes x 3
+    cfg = kp_cfg or keypoint_train_config()
+    t0 = time.perf_counter()
+    kp = pdist.spawn_ranks(dist_keypoint_rank, DIST_RANKS,
+                           args=(cfg, DIST_KP_STEPS), device=device,
+                           backend="gloo", timeout=600)
+    ms = max(r["ms_per_step"] for r in kp)
+    local_ms = max(r["local_bn"]["ms_per_step"] for r in kp)
+    out["keypoint"] = {"ms_per_step": ms,
+                       "images_per_s": cfg.train.batch_size / ms * 1e3,
+                       "allreduce_ms_per_step": [r["allreduce_ms_per_step"] for r in kp],
+                       "local_bn_ms_per_step": local_ms,
+                       "bn_allreduce_ms_per_step": ms - local_ms,
+                       "per_process": kp}
+
+    def per(key, src=lambda r: r):
+        return ", ".join(f"{src(r)[key]:.2f}" for r in kp)
+    local = lambda r: r["local_bn"]  # noqa: E731
+    log(f"dist: 9b keypoint stage ResNet-101 f32 480 px, global batch "
+        f"{cfg.train.batch_size} as {DIST_RANKS} processes x {kp[0]['local_batch']} "
+        f"sharing one card over gloo (not a multi-GPU number): "
+        f"{ms:.2f} ms/step ({per('ms_per_step')} per process; CUDA events "
+        f"{per('event_ms_per_step')}) = {out['keypoint']['images_per_s']:.1f} "
+        f"images/s, against one process's {one_process_kp_ms:.2f} ms/step (7b); "
+        f"gradient all-reduce {per('allreduce_ms_per_step')} ms/step of hook "
+        f"wall ({kp[0]['buckets_per_step']:.0f} buckets, {kp[0]['grad_mb']:.1f} MB "
+        f"of gradients); with BatchNorm on each process's batch {local_ms:.2f} "
+        f"ms/step ({per('ms_per_step', local)} per process; gradient all-reduce "
+        f"{per('allreduce_ms_per_step', local)} ms/step of hook wall), so the "
+        f"{kp[0]['bn_allreduces_per_step']} BatchNorm statistics all-reduces "
+        f"take {ms - local_ms:.2f} ms/step; peak "
+        f"{max(r['peak_gib'] for r in kp):.2f} GiB per process; "
+        f"{time.perf_counter() - t0:.1f} s with start-up [{card}]")
+
+    # ---- 9c: auto-sharded coco_eval against one process
+    ecfg, images, gt = eval_inputs["cfg"], eval_inputs["images"], eval_inputs["gt"]
+    model = build_posenet(ecfg.model, torch.device(device), serve_state)
+    with deterministic_cudnn():
+        ev = Evaluator(ecfg, model=model, device=device)
+        want, want_rows = run_coco_eval(ev, gt, images)
+    with tempfile.TemporaryDirectory() as d:
+        state_path = os.path.join(d, "serve.pt")
+        torch.save(serve_state, state_path)
+        t0 = time.perf_counter()
+        ev_ranks = pdist.spawn_ranks(dist_eval_rank, DIST_RANKS,
+                                     args=(state_path, ecfg, images, gt),
+                                     device=device, backend="gloo", timeout=600)
+        eval_s = time.perf_counter() - t0
+    primary = ev_ranks[0]
+    if primary["metrics"] != want:
+        raise AssertionError(f"distributed stats {primary['metrics']} differ "
+                             f"from one process's {want}")
+    if sorted_rows(primary["rows"]) != sorted_rows(want_rows):
+        raise AssertionError("distributed rows differ from one process's")
+    if any(r["metrics"] or r["rows"] is not None for r in ev_ranks[1:]):
+        raise AssertionError("a non-primary process returned results")
+    out["distributed_coco_eval_launches"] = sum(r["launches"] for r in ev_ranks)
+    out["max_abs_err"] = max(out["max_abs_err"], *(r["max_abs_err"] for r in ev_ranks))
+    out["eval"] = {"wall_s": [r["wall_s"] for r in ev_ranks],
+                   "first_s": [r["first_s"] for r in ev_ranks],
+                   "images": [r["images"] for r in ev_ranks]}
+    log(f"dist: 9c coco_eval auto-sharded over {DIST_RANKS} processes on one "
+        f"card (gloo; 6b's configuration, {len(images)} images as "
+        f"{[r['images'] for r in ev_ranks]}, deterministic cuDNN): stats and "
+        f"{len(want_rows)} rows equal one process's; coco_eval wall "
+        f"{', '.join(f'{r['wall_s']:.2f}' for r in ev_ranks)} s per process "
+        f"(first pass in the new process "
+        f"{', '.join(f'{r['first_s']:.2f}' for r in ev_ranks)} s), "
+        f"{eval_s:.1f} s with start-up; K1 "
+        f"{[r['launches'] for r in ev_ranks]} launches "
+        f"({[r['escalated'] for r in ev_ranks]} escalated); OKS AP "
+        f"{want['AP']:.4f} [{card}]")
+    del model, ev
+
+    # ---- 9d: sharded serving against the unsharded predictor
+    model = build_posenet(serve_cfg.model, torch.device(device), serve_state)
+    mesh = make_mesh(devices=[device] * DIST_RANKS)
+    with deterministic_cudnn():
+        sharded = BatchPredictor(serve_cfg, model=model, batch_size=SERVE_BATCH,
+                                 mesh=mesh)
+        plain = BatchPredictor(serve_cfg, model=model,
+                               batch_size=SERVE_BATCH // mesh.size, device=device)
+        # warm-up, K1's inputs recorded and held against its twin below
+        calls, restore = record_nms_inputs()
+        try:
+            sharded.predict(serve_images)
+        finally:
+            restore()
+        want = plain.predict(serve_images)
+        torch.cuda.synchronize()
+        cuda_nms.launches = 0
+        t0 = time.perf_counter()
+        got = sharded.predict(serve_images)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    out["sharded_serving_launches"] = cuda_nms.launches
+    n_batches = -(-len(serve_images) // SERVE_BATCH)
+    if cuda_nms.launches != n_batches * mesh.size or len(calls) != cuda_nms.launches:
+        raise AssertionError(f"sharded serving launched K1 {cuda_nms.launches} "
+                             f"times ({len(calls)} on the warm-up pass), "
+                             f"expected {n_batches * mesh.size}")
+    for boxes, valid, thresh in calls:
+        out["max_abs_err"] = max(out["max_abs_err"], check_nms_kernel(
+            boxes, valid, thresh, "sharded serving candidates", quiet=True)[1])
+    if got != want:
+        raise AssertionError("sharded serving rows differ from the unsharded "
+                             "predictor's")
+    n_people = check_people(got, len(serve_images))
+    log(f"dist: 9d BatchPredictor on a mesh of {mesh.devices}, batch "
+        f"{SERVE_BATCH}: {len(serve_images)} images in {serve_s:.3f} s, "
+        f"{n_people} people, rows equal an unsharded predictor's at the "
+        f"per-device batch {SERVE_BATCH // mesh.size} (deterministic cuDNN); "
+        f"K1 {out['sharded_serving_launches']} launches, bit-equal to its twin on the "
+        f"{len(calls)} candidate sets of the warm-up pass "
+        f"{sorted({tuple(v.shape) for _, v, _ in calls})} [{card}]")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"dist: phase 9 wall {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -2459,18 +2848,27 @@ def main() -> int:
 
     # ---- 6b. multi-scale COCO eval at full width -----------------------------
     full_eval = full_width_eval(model, cfg, card)
+    # the serving model's weights as phases 4-6b ran it, for phase 9
+    serve_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
 
     # ---- 6c. every evaluator variant at 6b's width, cli test's images -------
     variants = eval_variants(model, full_eval, card)
+    # phase 9 rebuilds the serving model from serve_state (6c rescaled the
+    # heatmap conv of this one) and reruns 6b's inputs
+    eval_inputs = {k: full_eval[k] for k in ("images", "gt", "cfg")}
     del model, predictor, pipe, heads, outs, bench_imgs, full_eval["images"]
     torch.cuda.empty_cache()
 
     # ---- 7. training: CUDA against CPU, then the stage chain at full width ----
     check_training_against_cpu()
-    full_width_training(card)
+    training = full_width_training(card)
 
     # ---- 8. the CLI on a synthetic COCO tree of PNG files ---------------------
     cli = cli_phase(card)
+
+    # ---- 9. several processes on the one card --------------------------------
+    dist = distributed_phase(card, serve_state, cfg, images, eval_inputs,
+                             training["keypoint"]["ms_per_step"])
 
     kernels = [{
         "name": "nms_suppress",
@@ -2481,7 +2879,10 @@ def main() -> int:
         "launches": (launches["nms_suppress"] + full_eval["launches"]
                      + cli["launches"] + deploy["launches"]
                      + sum(v["launches"] for v in variants["variants"].values())
-                     + variants["cli_test_launches"]),
+                     + variants["cli_test_launches"]
+                     + dist["dryrun_e2e_launches"]
+                     + dist["distributed_coco_eval_launches"]
+                     + dist["sharded_serving_launches"]),
         "launches_by_path": {"serving": launches["nms_suppress"],
                              "coco_eval": full_eval["launches"],
                              "coco_eval_check": eval_check["launches"],
@@ -2492,10 +2893,13 @@ def main() -> int:
                              "cli_test": variants["cli_test_launches"],
                              "cli_coco_eval": cli["launches"],
                              "exported_serving": deploy["launches"],
-                             "exported_on_cpu": deploy["moved_launches"]},
+                             "exported_on_cpu": deploy["moved_launches"],
+                             "dryrun_e2e": dist["dryrun_e2e_launches"],
+                             "distributed_coco_eval": dist["distributed_coco_eval_launches"],
+                             "sharded_serving": dist["sharded_serving_launches"]},
         "eval_variant_ms_per_image": {k: v["ms_per_image"]
                                       for k, v in variants["variants"].items()},
-        "max_abs_err": max(max_err, full_eval["max_abs_err"],
+        "max_abs_err": max(max_err, full_eval["max_abs_err"], dist["max_abs_err"],
                            *(v["max_abs_err"] for v in variants["variants"].values())),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,

@@ -17,7 +17,9 @@ a counterpart under the same path:
   engine/predictor.py  BatchPredictor, the serving front
   engine/evaluator.py  Evaluator, the multi-scale COCO eval
   engine/train_steps.py, trainer.py, checkpoint.py   training
-  utils/               meters, timer, logger, metrics log
+  parallel/            several processes (torch.distributed) and the
+                       devices of one process (Mesh, sharded serving)
+  utils/               meters, timer, logger, metrics log, profiler window
 
 Public tensors keep the JAX package's layouts (NHWC images, (B, H/4, W/4, 18)
 heatmaps, (B, A, 1) / (B, A, 4) detection heads in (y, x, anchor) order), so

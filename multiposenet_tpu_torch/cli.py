@@ -1,5 +1,5 @@
 """Command-line interface of the port — the counterpart of
-``python -m multiposenet_tpu.cli`` for one process on one GPU.
+``python -m multiposenet_tpu.cli``.
 
   python -m multiposenet_tpu_torch.cli train --subnet keypoint --coco-root /data/COCO
   python -m multiposenet_tpu_torch.cli val --subnet detection --ckpt <dir>
@@ -8,6 +8,8 @@
   python -m multiposenet_tpu_torch.cli merge-results shard0.json shard1.json
   python -m multiposenet_tpu_torch.cli export-program pose.pt2 --ckpt <dir> --fold-bn
   python -m multiposenet_tpu_torch.cli bench
+  python -m multiposenet_tpu_torch.cli export-torch <ckpt dir> out.h5
+  python -m multiposenet_tpu_torch.cli import-torch ckpt.h5 <save dir>
 
 Every command runs on the CUDA GPU; ``MPN_PLATFORM=cpu`` asks for the CPU
 (the plain PyTorch twins of the kernels), as the JAX CLI's variable pins its
@@ -16,6 +18,13 @@ Checkpoints are the port's own directories (engine/checkpoint.py); ``--ckpt``
 and ``--init-params`` load the model state partially, BatchNorm statistics
 included.  ``main`` returns the command's result (the stats of ``coco-eval``
 and ``merge-results``), so that it can also be called in process.
+
+Several processes: ``train`` and ``coco-eval`` join a process group with
+``--coordinator host:port --num-processes N --process-id I`` (one command
+per process; ``MPN_DISTRIBUTED=1`` reads ``torchrun``'s environment
+instead; parallel/distributed.py).  ``train``'s ``--batch-size`` is then the
+global batch and each process loads its shard; ``coco-eval`` shards the
+images by itself and process 0 scores them and writes the metrics file.
 """
 
 from __future__ import annotations
@@ -51,6 +60,29 @@ def _fold_flag(p: argparse.ArgumentParser):
                         "them after the checkpoint load (inference-only "
                         "rewrite, models/fold_bn.py); outputs move by float "
                         "reassociation only")
+
+
+def _cluster_flags(p: argparse.ArgumentParser):
+    """Process-group membership, shared by ``train`` and ``coco-eval``."""
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (tcp://), or a URL such as "
+                        "file:///shared/path; without it, MPN_DISTRIBUTED=1 "
+                        "takes torchrun's environment")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="number of processes (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's index (with --coordinator)")
+
+
+def _join_cluster(args):
+    """Join the process group the flags name (or none) and return this
+    process's device."""
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+
+    device = resolve_cli_device()
+    pdist.initialize(args.coordinator, num_processes=args.num_processes,
+                     process_id=args.process_id, device=device)
+    return pdist.process_device() or device
 
 
 def resolve_cli_device():
@@ -130,18 +162,29 @@ def make_loaders(cfg, subnet: str, training: bool):
                               cfg.data, augment=training)
     else:  # prn
         ds = PRNDataset(COCOIndex(ann), cfg)
-    return Loader(ds, cfg.train.batch_size, shuffle=training,
-                  num_workers=cfg.data.num_workers)
+    # several processes: cfg.train.batch_size is the global batch, and each
+    # process loads its disjoint shard; validation is sharded the same way,
+    # and the val step averages over the processes, so every process's
+    # plateau scheduler sees the same loss
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+    return Loader(ds, pdist.per_host_batch(cfg.train.batch_size),
+                  shuffle=training, num_workers=cfg.data.num_workers,
+                  shard_id=pdist.process_index(),
+                  num_shards=pdist.process_count())
 
 
 def cmd_train(args):
     from multiposenet_tpu_torch.engine.trainer import Trainer
-    device = resolve_cli_device()
-    cfg = build_config(args, args.subnet)
-    train = make_loaders(cfg, args.subnet, True)
-    val = make_loaders(cfg, args.subnet, False)
-    Trainer(cfg, train_data=train, val_data=val,
-            init_ckpt_params=args.init_params, device=device).train()
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+    device = _join_cluster(args)
+    try:
+        cfg = build_config(args, args.subnet)
+        train = make_loaders(cfg, args.subnet, True)
+        val = make_loaders(cfg, args.subnet, False)
+        Trainer(cfg, train_data=train, val_data=val,
+                init_ckpt_params=args.init_params, device=device).train()
+    finally:
+        pdist.shutdown()
 
 
 def cmd_val(args):
@@ -153,13 +196,13 @@ def cmd_val(args):
                    device=device).validate(args.max_batches)
 
 
-def _load_eval(args, subnet="keypoint"):
+def _load_eval(args, subnet="keypoint", device=None):
     from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
     from multiposenet_tpu_torch.engine.evaluator import Evaluator
     from multiposenet_tpu_torch.models.fold_bn import fold_bn_state_dict
     from multiposenet_tpu_torch.models.posenet import build_posenet
 
-    device = resolve_cli_device()
+    device = device or resolve_cli_device()
     cfg = build_config(args, subnet)
     model = build_posenet(cfg.model, device, seed=0)
     if args.ckpt:
@@ -227,9 +270,27 @@ def _apply_eval_flags(ev, args):
 
 
 def cmd_coco_eval(args):
+    from multiposenet_tpu_torch.parallel import distributed as pdist
     ann = os.path.join(args.coco_root, "annotations/person_keypoints_val2017.json")
     if not os.path.isfile(ann):
         sys.exit(f"error: annotations not found: {ann}")
+    # join the group before the model is built; coco_eval then shards the
+    # images per process and gathers the rows on process 0
+    device = _join_cluster(args)
+    try:
+        return _coco_eval(args, device)
+    finally:
+        pdist.shutdown()
+
+
+def _coco_eval(args, device):
+    from multiposenet_tpu_torch.parallel import distributed as pdist
+    if args.eval_shard and pdist.process_count() > 1:
+        # a manual shard in a group would run the same slice in every
+        # process and skip the rest
+        sys.exit("error: --eval-shard conflicts with distributed mode; "
+                 "in a process group each process shards by itself "
+                 "(drop --eval-shard)")
     shard = (0, 1)
     if args.eval_shard:
         i, n = args.eval_shard.split(":")
@@ -239,12 +300,12 @@ def cmd_coco_eval(args):
         if shard[1] > 1 and not args.result_file:
             sys.exit("error: --eval-shard requires --result-file "
                      "(merge shards with `cli merge-results`)")
-    _, ev = _load_eval(args)
+    _, ev = _load_eval(args, device=device)
     _apply_eval_flags(ev, args)
     metrics = ev.coco_eval(max_images=args.max_images,
                            result_file=args.result_file, bucket=args.bucket,
                            shard=shard, skip_metrics=shard != (0, 1))
-    if args.metrics_file and shard == (0, 1):
+    if args.metrics_file and shard == (0, 1) and pdist.is_primary():
         # written whenever asked (an empty dict when nothing was detected),
         # so that a reader finds a definite verdict, not a missing file
         with open(args.metrics_file, "w") as f:
@@ -269,6 +330,44 @@ def cmd_export_program(args):
         f.write(blob)
     print(f"wrote {args.out}: {len(blob) / 1e6:.1f} MB, batch={batch}, "
           f"inp={cfg.eval.inp_size}")
+
+
+def cmd_export_torch(args):
+    """A port checkpoint in the reference's h5 layout
+    (weights.write_reference_h5), loadable by the reference's load_net
+    (net_utils.py:69-92); the counterpart of the JAX package's
+    ``export-torch``."""
+    from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
+    from multiposenet_tpu_torch.weights import write_reference_h5
+
+    state = ckpt_lib.load_checkpoint(args.ckpt_dir)["model"]
+    _check_backbone(state, args.backbone)
+    write_reference_h5(state, args.out_h5, epoch=args.epoch)
+    print(f"wrote {args.out_h5}: {len(state)} state_dict entries "
+          f"(epoch={args.epoch})")
+
+
+def cmd_import_torch(args):
+    """A reference h5 checkpoint (weights.read_reference_h5) as a port
+    model checkpoint under ``save_dir``, which ``--ckpt`` loads; the
+    counterpart of tools/convert_torch_ckpt.py."""
+    from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
+    from multiposenet_tpu_torch.weights import read_reference_h5
+
+    state, epoch = read_reference_h5(args.h5)
+    _check_backbone(state, args.backbone)
+    path = ckpt_lib.save_model_checkpoint(args.save_dir, state, max(epoch, 0))
+    print(f"wrote {path}: {len(state)} state_dict entries (epoch={epoch})")
+    return path
+
+
+def _check_backbone(state, backbone: str) -> None:
+    # resnet50 has 6 layer3 blocks, resnet101 23 (reference fpn.py:128-134)
+    n_l3 = len({k.split(".")[2] for k in state if k.startswith("fpn.layer3.")})
+    expect = {"resnet50": 6, "resnet101": 23}[backbone]
+    if n_l3 != expect:
+        sys.exit(f"error: the checkpoint has {n_l3} fpn.layer3 blocks but "
+                 f"--backbone {backbone} has {expect}")
 
 
 def cmd_bench(_args):
@@ -311,6 +410,7 @@ def main(argv=None):
     pt.add_argument("--init-params", default=None,
                     help="another stage's checkpoint to start from (weights "
                          "and BN statistics)")
+    _cluster_flags(pt)
     pt.set_defaults(fn=cmd_train)
 
     pv = sub.add_parser("val")
@@ -373,6 +473,7 @@ def main(argv=None):
     pc.add_argument("--eval-shard", default=None, metavar="I:N",
                     help="process only image slice i::n (then `cli "
                          "merge-results`)")
+    _cluster_flags(pc)
     pc.set_defaults(fn=cmd_coco_eval)
 
     pm = sub.add_parser("merge-results")
@@ -392,6 +493,27 @@ def main(argv=None):
     pe.add_argument("out", help="output artifact path")
     _fold_flag(pe)
     pe.set_defaults(fn=cmd_export_program)
+
+    px = sub.add_parser(
+        "export-torch",
+        help="write a checkpoint in the reference PyTorch h5 layout")
+    px.add_argument("ckpt_dir", help="a checkpoint directory of the port")
+    px.add_argument("out_h5")
+    px.add_argument("--backbone", default="resnet101",
+                    choices=["resnet50", "resnet101"])
+    px.add_argument("--epoch", type=int, default=-1)
+    px.set_defaults(fn=cmd_export_torch)
+
+    pi = sub.add_parser(
+        "import-torch",
+        help="read a reference PyTorch h5 checkpoint into a checkpoint of "
+             "the port (for --ckpt)")
+    pi.add_argument("h5")
+    pi.add_argument("save_dir", help="the checkpoint is written as "
+                                     "<save_dir>/ckpt_<epoch>")
+    pi.add_argument("--backbone", default="resnet101",
+                    choices=["resnet50", "resnet101"])
+    pi.set_defaults(fn=cmd_import_torch)
 
     pb = sub.add_parser("bench", help="the e2e serving benchmark (bench.py's "
                                       "configuration) on the GPU")

@@ -143,9 +143,10 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Engine parameters (reference trainer.py:44-105 and the per-stage
-    training scripts).  One device: the JAX package's mesh fields wait for
-    multi-GPU training, and a torch step updates the state in place, so
-    there is no ``donate_state``."""
+    training scripts).  ``batch_size`` is the global batch: each of several
+    processes takes its share (parallel/distributed.per_host_batch).  A
+    torch step updates the state in place, so there is no
+    ``donate_state``."""
 
     exp_name: str = "multipose101"
     subnet: str = "keypoint"        # 'keypoint' | 'detection' | 'prn'

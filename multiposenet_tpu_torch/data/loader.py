@@ -4,9 +4,9 @@ port's copy of multiposenet_tpu/data/loader.py.
 ``Loader`` (numpy and threads only) replaces the reference's torch
 DataLoader (datasets/dataloader.py:6-38): worker threads build samples,
 batches are stacked as numpy arrays and emitted in order, a few steps
-ahead.  It serves one process; the JAX package's per-host sharding has no
-counterpart until the port trains on several GPUs.  ``device_prefetch``
-puts batches on the GPU two steps ahead of the train loop.
+ahead.  With several processes each loads its own shard of the dataset
+(``shard_id``, ``num_shards``).  ``device_prefetch`` puts batches on the
+process's device two steps ahead of the train loop.
 """
 
 from __future__ import annotations
@@ -31,11 +31,21 @@ class _WorkerError:
 class Loader:
     """Batches of ``dataset`` in order, built by ``num_workers`` threads.
     An exception raised while building a sample is raised in the iterating
-    thread, which then stops the other workers."""
+    thread, which then stops the other workers.
+
+    ``batch_size`` is this process's batch.  With several processes pass
+    ``shard_id=process_index``, ``num_shards=process_count``: every shard
+    shuffles the same permutation (same seed and epoch) and takes its
+    stride of it, so the shards are disjoint and together cover the
+    dataset once per epoch, but for up to ``num_shards - 1`` trailing
+    samples: every shard has the same length, since processes that ran
+    different numbers of steps would wait forever in the next collective."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 4):
+                 prefetch: int = 4, shard_id: int = 0, num_shards: int = 1):
+        if num_shards < 1 or not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} not in [0, {num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -43,10 +53,15 @@ class Loader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         self.epoch = 0
 
+    def _shard_size(self) -> int:
+        return len(self.dataset) // self.num_shards
+
     def __len__(self):
-        n = len(self.dataset)
+        n = self._shard_size()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -55,6 +70,7 @@ class Loader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        order = order[self.shard_id::self.num_shards][: self._shard_size()]
         n = len(order)
         stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
         for i in range(0, stop, self.batch_size):

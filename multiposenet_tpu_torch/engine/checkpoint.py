@@ -94,6 +94,15 @@ def save_checkpoint(save_dir: str, state, epoch: int, max_n_ckpts: int = 0,
     return _write(save_dir, _payload(state), epoch, max_n_ckpts, step)
 
 
+def save_model_checkpoint(save_dir: str, state_dict: Mapping[str, torch.Tensor],
+                          epoch: int = 0) -> str:
+    """A checkpoint of a model state alone (no optimizer state, step 0):
+    what ``--ckpt`` and ``restore_model_state_partial`` read, written as
+    ``ckpt_{epoch}`` under save_dir.  Returns its path."""
+    return _write(save_dir, {"model": dict(state_dict), "step": 0,
+                             "subnet": None}, epoch, 0, None)
+
+
 class AsyncSaver:
     """Checkpoint writes on a background thread, so the train loop keeps
     enqueueing steps while a checkpoint goes to disk.

@@ -37,6 +37,8 @@ directory with ``data/image_io.read_image`` (PNG without cv2).
 n + 1 while one worker thread fetches image n's peaks and boxes, groups its
 people and formats them; at most two images (or groups) are in flight.  The
 host chain fetches on the calling thread and finishes on the worker.
+Inside a process group of several processes ``coco_eval`` shards the images
+by itself and gathers the rows on process 0, which scores them.
 """
 
 from __future__ import annotations
@@ -787,7 +789,19 @@ class Evaluator:
         """OKS AP of the multi-scale + flip protocol over the person images
         of ``ann_file``.  ``shard=(i, n)`` evaluates every n-th image from
         the i-th; ``result_file`` receives the result rows; with
-        ``skip_metrics`` (a shard) nothing is scored."""
+        ``skip_metrics`` (a shard) nothing is scored.
+
+        Inside a process group of several processes and with no explicit
+        shard, each process takes its stride of the images by itself
+        (``img_ids[i::n]``), the rows are gathered over the group's own
+        collectives (``parallel.distributed.gather_objects``; no shared
+        filesystem), and process 0 scores the merged set; the others return
+        ``{}``.  A process whose loop raises still joins the gather, with
+        its error in place of rows, and then raises: otherwise the others
+        would wait in the collective forever.  Process 0 refuses to score a
+        partial set."""
+        from multiposenet_tpu_torch.parallel import distributed as pdist
+
         cfg = self.cfg
         coco_root = coco_root or cfg.data.coco_root
         ann_file = ann_file or os.path.join(
@@ -799,12 +813,42 @@ class Evaluator:
         img_ids = gt.get_img_ids(cat_ids=[1])
         if max_images:
             img_ids = img_ids[:max_images]
+        auto_dist = shard == (0, 1) and pdist.process_count() > 1
+        if auto_dist:
+            shard = (pdist.process_index(), pdist.process_count())
+        full_img_ids = list(img_ids)
         if shard != (0, 1):
             img_ids = img_ids[shard[0]::shard[1]]
-            logger.info("eval shard %d/%d: %d images", shard[0], shard[1],
-                        len(img_ids))
+            logger.info("eval shard %d/%d: %d images%s", shard[0], shard[1],
+                        len(img_ids),
+                        " (distributed auto-shard)" if auto_dist else "")
         self.escalated = []
-        results = self._coco_eval_loop(gt, img_ids, load_image, bucket)
+        results: List[Dict] = []
+        eval_error: Optional[BaseException] = None
+        try:
+            results = self._coco_eval_loop(gt, img_ids, load_image, bucket)
+        except BaseException as e:
+            if not auto_dist:
+                raise
+            eval_error = e
+            logger.exception("eval shard %d/%d failed; joining the result "
+                             "gather before raising", *shard)
+
+        if auto_dist:
+            payload = {"results": results,
+                       "error": repr(eval_error) if eval_error else None}
+            gathered = pdist.gather_objects(payload, decode=pdist.is_primary())
+            if eval_error is not None:
+                raise eval_error
+            if not pdist.is_primary():
+                return {}
+            errs = [p["error"] for p in gathered if p["error"]]
+            if errs:
+                raise RuntimeError(
+                    f"{len(errs)} eval shard(s) failed: {errs}; refusing "
+                    "to score partial results")
+            results = [r for p in gathered for r in p["results"]]
+            img_ids = full_img_ids
 
         if result_file:
             with open(result_file, "w") as f:

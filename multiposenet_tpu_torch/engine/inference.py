@@ -16,13 +16,18 @@ JAX model's tensors into the port's post-processing.  Every function batches
 over images where the JAX package used ``vmap``; the grid marks are a
 scatter and the window sums masked matmuls (the JAX one-hot contractions at
 inference.py:409-464 were a TPU choice).
+
+``make_sharded_pipeline`` and ``make_sharded_e2e_pipeline`` serve one batch
+over the devices of a ``parallel.mesh.Mesh``: the weights replicated, the
+batch split on dim 0, each slice run on its replica, the outputs
+concatenated; there is no collective in the forward.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +35,7 @@ import torch
 from multiposenet_tpu_torch.config import Config, resolve_device
 from multiposenet_tpu_torch.eval.grouping import format_assignment
 from multiposenet_tpu_torch.models.posenet import PoseNet
+from multiposenet_tpu_torch.parallel.mesh import Mesh, replicated, shard_batch
 from multiposenet_tpu_torch.ops.anchors import anchors_for_shape
 from multiposenet_tpu_torch.ops.boxes import clip_boxes, decode_boxes
 from multiposenet_tpu_torch.ops.gaussian import blur_matrix
@@ -250,6 +256,60 @@ def make_e2e_pose_pipeline(model: PoseNet, cfg: Config,
                            image_hw: Tuple[int, int], preprocess: bool = True,
                            device=None) -> E2EPosePipeline:
     return E2EPosePipeline(model, cfg, image_hw, preprocess, device)
+
+
+class ShardedPipeline:
+    """One pipeline replica per device of a mesh: each positional tensor
+    argument is split on dim 0 over the replicas (``shard_batch``), each
+    replica runs its slice on its device (the launches of different GPUs
+    overlap: nothing waits in between), and the outputs are concatenated on
+    the mesh's first device, field by field through NamedTuples."""
+
+    def __init__(self, replicas: Sequence, mesh: Mesh):
+        self.replicas = list(replicas)
+        self.mesh = mesh
+        self.device = mesh.devices[0]
+
+    def __call__(self, *args):
+        slices = [shard_batch(self.mesh, a) for a in args]
+        outs = [rep(*(s[i] for s in slices))
+                for i, rep in enumerate(self.replicas)]
+        return _concat(outs, self.device)
+
+
+def _concat(parts: list, device: torch.device):
+    first = parts[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(device) for p in parts])
+    if isinstance(first, tuple):
+        fields = [_concat([p[i] for p in parts], device)
+                  for i in range(len(first))]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+    raise TypeError(f"cannot concatenate {type(first).__name__}")
+
+
+def make_sharded_pipeline(model: PoseNet, cfg: Config,
+                          image_hw: Tuple[int, int], mesh: Mesh,
+                          preprocess: bool = True) -> ShardedPipeline:
+    """``make_full_pipeline`` served over ``mesh``: ``images ->
+    PipelineOutput`` with the batch (a multiple of ``mesh.size``) split over
+    the replicas of ``model``."""
+    return ShardedPipeline(
+        [make_full_pipeline(m, cfg, image_hw, preprocess, device=d)
+         for m, d in zip(replicated(mesh, model), mesh.devices)], mesh)
+
+
+def make_sharded_e2e_pipeline(model: PoseNet, cfg: Config,
+                              image_hw: Tuple[int, int], mesh: Mesh,
+                              preprocess: bool = True) -> ShardedPipeline:
+    """``make_e2e_pose_pipeline`` served over ``mesh``: ``(images, scales)
+    -> (PipelineOutput, PoseAssignments)`` with the batch (a multiple of
+    ``mesh.size``) split over the replicas of ``model``."""
+    return ShardedPipeline(
+        [make_e2e_pose_pipeline(m, cfg, image_hw, preprocess, device=d)
+         for m, d in zip(replicated(mesh, model), mesh.devices)], mesh)
 
 
 def format_pose_batch(assigns: PoseAssignments, file_names=None,

@@ -11,7 +11,9 @@ multiposenet_tpu/engine/predictor.py.
 - unpacks per-image person results in original-image coordinates.
 
 Batches are dispatched two deep: PyTorch queues batch k+1 on the device
-while the host formats batch k.
+while the host formats batch k.  With a ``mesh`` each batch is split over
+the mesh's devices, one replica of the model on each
+(engine/inference.make_sharded_e2e_pipeline).
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ from multiposenet_tpu_torch.engine.inference import (
     PoseAssignments,
     format_pose_batch,
     make_e2e_pose_pipeline,
+    make_sharded_e2e_pipeline,
 )
 from multiposenet_tpu_torch.models.posenet import PoseNet, build_posenet
+from multiposenet_tpu_torch.parallel.mesh import Mesh
 
 
 def resize_bilinear_u8(img: torch.Tensor, size: int) -> torch.Tensor:
@@ -48,12 +52,21 @@ class BatchPredictor:
     The model comes from ``state_dict`` (loaded strictly into a new PoseNet)
     or is passed ready-built as ``model``.  Runs on ``cuda`` unless
     ``device`` names another device; without a GPU and without an explicit
-    ``device="cpu"`` it raises.
+    ``device="cpu"`` it raises.  With ``mesh`` (parallel/mesh.make_mesh)
+    every batch is split over the mesh's devices, the model replicated on
+    each (``device`` is then the mesh's first device, where the outputs are
+    gathered); ``batch_size`` must divide by the mesh's device count.
     """
 
     def __init__(self, cfg: Config, state_dict: Optional[dict] = None,
                  batch_size: int = 8, device=None,
-                 model: Optional[PoseNet] = None):
+                 model: Optional[PoseNet] = None, mesh: Optional[Mesh] = None):
+        if mesh is not None:
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {batch_size} must be divisible by the mesh "
+                    f"device count {mesh.size} (batch-axis sharding)")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if model is None:
             if state_dict is None:
@@ -63,8 +76,13 @@ class BatchPredictor:
         self.batch_size = batch_size
         self.inp = cfg.eval.inp_size
         self.model = model
-        self._pipeline = make_e2e_pose_pipeline(model, cfg, (self.inp, self.inp),
-                                                device=self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            self._pipeline = make_sharded_e2e_pipeline(
+                model, cfg, (self.inp, self.inp), mesh)
+        else:
+            self._pipeline = make_e2e_pose_pipeline(
+                model, cfg, (self.inp, self.inp), device=self.device)
 
     @classmethod
     def from_exported(cls, src, device=None) -> "BatchPredictor":
@@ -81,6 +99,7 @@ class BatchPredictor:
         self.device = sp.device
         self.cfg = None
         self.model = None
+        self.mesh = None
         self.batch_size = sp.batch
         self.inp = sp.inp_size
         self._pipeline = lambda images, scales: (None, sp(images, scales))
@@ -125,10 +144,11 @@ class BatchPredictor:
             for i, im in enumerate(chunk):
                 batch[i], scales[i] = self._pack(im)
             # pinned uploads queue behind the device's work instead of
-            # waiting for it
-            _, assigns = self._pipeline(
-                batch.to(self.device, non_blocking=True),
-                scales.to(self.device, non_blocking=True))
+            # waiting for it; a mesh uploads each device's slice itself
+            if self.mesh is None:
+                batch = batch.to(self.device, non_blocking=True)
+                scales = scales.to(self.device, non_blocking=True)
+            _, assigns = self._pipeline(batch, scales)
             pending.append((assigns, len(chunk)))
             if len(pending) > 2:
                 results.extend(self._finish_chunk(*pending.pop(0)))

@@ -22,6 +22,20 @@ JAX package's ``optax.masked`` plus its frozen-leaf skip.  The learning
 rate is an argument of each train step, which the host-side plateau
 scheduler sets.  A step updates the state in place and returns its logs as
 0-d tensors on the device, so the caller decides when to wait for them.
+
+Several processes (parallel/distributed.py): inside a process group each
+train step runs its stage's loss through ``DistributedDataParallel``, which
+averages the trainable gradients over the processes during the backward.
+Each process's batch is its equal share of the global batch and every loss
+is a mean over equal local batches (the detection loss is normalised per
+image, then averaged), so the averaged gradient is the global batch's, as
+under the JAX package's batch-sharded ``jit``; the trunk BatchNorm of the
+keypoint stage takes global-batch statistics (the step switches that on
+with models/fpn.use_global_batch_stats when it wraps the model), and
+the PRN dropout masks are drawn for the global batch (models/subnets.dropout).
+The inf-norm clip runs on the averaged gradients.  A train step's logs are
+this process's; a val step's are the mean over the processes, so that every
+process's plateau scheduler decides alike.
 """
 
 from __future__ import annotations
@@ -32,17 +46,22 @@ from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from multiposenet_tpu_torch.config import Config, resolve_device
 from multiposenet_tpu_torch.engine.inference import (
     full_fp32_matmul,
     preprocess_on_device,
 )
+from multiposenet_tpu_torch.models.fpn import use_global_batch_stats
 from multiposenet_tpu_torch.models.posenet import PoseNet, build_trainable_posenet
 from multiposenet_tpu_torch.ops.anchors import anchors_for_shape
 from multiposenet_tpu_torch.ops.gaussian import gaussian_blur
 from multiposenet_tpu_torch.ops.heatmap import make_heatmaps
 from multiposenet_tpu_torch.ops.losses import detection_loss, keypoint_loss, prn_loss
+from multiposenet_tpu_torch.parallel import distributed as pdist
 
 # ---------------------------------------------------------------------------
 # stage-wise trainability (reference training/multipose_*_train.py:32-89)
@@ -186,6 +205,63 @@ def _logs(logs: Dict[str, torch.Tensor], loss: torch.Tensor
     return out
 
 
+def _global_mean(logs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A val step's logs averaged over the process group (one all-reduce);
+    as they are outside one."""
+    if not pdist.is_active():
+        return logs
+    keys = list(logs)
+    dt = torch.promote_types(logs["loss"].dtype, torch.float32)
+    packed = torch.stack([logs[k].to(dt) for k in keys])
+    tdist.all_reduce(packed)
+    packed /= pdist.process_count()
+    return dict(zip(keys, packed.unbind()))
+
+
+class _StageLoss(nn.Module):
+    """A stage's loss computation as a module's ``forward``.
+    ``DistributedDataParallel`` hooks ``forward`` alone, and the steps call
+    stage methods (``keypoint_forward``, ``prn_forward``, ...), so this is
+    what it wraps."""
+
+    def __init__(self, model: PoseNet, loss_fn: Callable):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, *args):
+        return self.loss_fn(self.model, *args)
+
+
+class _TrainLoss:
+    """A train step's way to its loss: ``loss_fn(model, *args)`` in one
+    process; inside a process group, the same through
+    ``DistributedDataParallel`` around ``_StageLoss``, built once per model.
+    Every trainable parameter of each stage reaches its loss, so
+    ``find_unused_parameters`` is off; frozen parameters do not require
+    grad, so DDP leaves them out; the buffers are not broadcast at each
+    forward, because the global BatchNorm statistics, which this switches
+    on for the model's BatchNorm layers, keep them equal."""
+
+    def __init__(self, loss_fn: Callable, device: torch.device):
+        self.loss_fn = loss_fn
+        self.device = device
+        self._model: Optional[PoseNet] = None
+        self._ddp: Optional[DistributedDataParallel] = None
+
+    def __call__(self, model: PoseNet, *args):
+        if not pdist.is_active():
+            return self.loss_fn(model, *args)
+        if self._model is not model:
+            use_global_batch_stats(model)
+            self._ddp = DistributedDataParallel(
+                _StageLoss(model, self.loss_fn),
+                device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                broadcast_buffers=False, find_unused_parameters=False)
+            self._model = model
+        return self._ddp(*args)
+
+
 # ---------------------------------------------------------------------------
 # keypoint stage
 # ---------------------------------------------------------------------------
@@ -215,15 +291,17 @@ def make_keypoint_steps(cfg: Config, device=None):
         _, saved = model.keypoint_forward(imgs, train=train)
         return keypoint_loss(saved, heat, hmask, num_j)
 
+    train_loss = _TrainLoss(loss_from_batch, device)
+
     def train_step(state: TrainState, batch, lr: float):
-        loss, logs = loss_from_batch(state.model, _on_device(batch, device), True)
+        loss, logs = train_loss(state.model, _on_device(batch, device), True)
         _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
         return state, _logs(logs, loss)
 
     @torch.no_grad()
     def val_step(state: TrainState, batch):
         loss, logs = loss_from_batch(state.model, _on_device(batch, device), False)
-        return _logs(logs, loss)
+        return _global_mean(_logs(logs, loss))
 
     return train_step, val_step
 
@@ -249,15 +327,17 @@ def make_detection_steps(cfg: Config, device=None):
         cls, reg = model.detection_forward(imgs)
         return detection_loss(cls, reg, anchors, batch["boxes"].float(), **loss_kw)
 
+    train_loss = _TrainLoss(loss_from_batch, device)
+
     def train_step(state: TrainState, batch, lr: float):
-        loss, logs = loss_from_batch(state.model, _on_device(batch, device))
+        loss, logs = train_loss(state.model, _on_device(batch, device))
         _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
         return state, _logs(logs, loss)
 
     @torch.no_grad()
     def val_step(state: TrainState, batch):
         loss, logs = loss_from_batch(state.model, _on_device(batch, device))
-        return _logs(logs, loss)
+        return _global_mean(_logs(logs, loss))
 
     return train_step, val_step
 
@@ -278,7 +358,9 @@ def make_prn_steps(cfg: Config, device=None):
     with TF32 off.
 
     ``train_step(state, batch, lr, generator) -> (state, logs)``, with the
-    dropout masks drawn from ``generator``; ``val_step(state, batch)``.
+    dropout masks drawn from ``generator`` (the same seed in every process:
+    each draws the global batch's masks and keeps its rows);
+    ``val_step(state, batch)``.
     """
     device = resolve_device(device)
 
@@ -286,20 +368,23 @@ def make_prn_steps(cfg: Config, device=None):
         with full_fp32_matmul():
             grids = gaussian_blur(batch["weights_marks"], sigma=1.0, mode="nearest")
             labels = gaussian_blur(batch["label_marks"], sigma=2.0, mode="constant")
-        out = model.prn_forward(grids, train, generator)
+        shard = (pdist.process_index(), pdist.process_count())
+        out = model.prn_forward(grids, train, generator, shard)
         return prn_loss(out, labels)
+
+    train_loss = _TrainLoss(loss_from_batch, device)
 
     def train_step(state: TrainState, batch, lr: float,
                    generator: Optional[torch.Generator]):
-        loss, logs = loss_from_batch(state.model, _on_device(batch, device),
-                                     True, generator)
+        loss, logs = train_loss(state.model, _on_device(batch, device),
+                                True, generator)
         _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
         return state, _logs(logs, loss)
 
     @torch.no_grad()
     def val_step(state: TrainState, batch):
         loss, logs = loss_from_batch(state.model, _on_device(batch, device), False)
-        return _logs(logs, loss)
+        return _global_mean(_logs(logs, loss))
 
     return train_step, val_step
 

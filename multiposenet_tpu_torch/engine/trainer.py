@@ -1,6 +1,6 @@
 """Training engine — the reference Trainer (training/trainer.py:108-362)
 around the port's per-stage train steps; PyTorch twin of
-multiposenet_tpu/engine/trainer.py on one device.
+multiposenet_tpu/engine/trainer.py.
 
 - epoch loop with per-step meters and fps/ETA logging (print_freq)
 - periodic step checkpoints (save_freq_step) and epoch checkpoints
@@ -16,8 +16,17 @@ multiposenet_tpu/engine/trainer.py on one device.
 Targets and losses are computed on the device inside the step, the learning
 rate is an argument of the step, batches reach the device two steps ahead
 (``data.loader.device_prefetch``), and the steps' logs stay on the device
-until a print fetches them all in one copy.  The JAX package's mesh and
-multi-host state broadcast have no counterpart here yet.
+until a print fetches them all in one copy.
+
+Several processes (parallel/distributed.py): each process runs a Trainer
+on its own device and its own shard of the data (``cfg.train.batch_size``
+is the global batch, which must divide by the process count), and the
+train steps average the gradients (engine/train_steps.py).  After a resume
+or a staged init, process 0's model, optimizer state and counters are
+broadcast to the others, since only process 0 writes checkpoints and the
+others may have restored nothing or something older.  Only process 0
+writes checkpoints and metrics.  A stop signal is not agreed between the
+processes (nor in the JAX package): signal every process.
 """
 
 from __future__ import annotations
@@ -28,16 +37,30 @@ import signal
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+import torch.distributed as tdist
 
 from multiposenet_tpu_torch.config import Config, resolve_device
 from multiposenet_tpu_torch.data.loader import device_prefetch
 from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
 from multiposenet_tpu_torch.engine.train_steps import STEP_FACTORIES, create_train_state
 from multiposenet_tpu_torch.models.posenet import PoseNet
+from multiposenet_tpu_torch.parallel import distributed as pdist
 from multiposenet_tpu_torch.utils.logging import logger
 from multiposenet_tpu_torch.utils.meters import AverageValueMeter
 from multiposenet_tpu_torch.utils.metrics import MetricsWriter
 from multiposenet_tpu_torch.utils.timer import Timer
+
+
+def _to_cpu(obj):
+    """A copy of a nest of dicts, lists and tuples with every tensor on the
+    CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
 
 
 class ReduceLROnPlateau:
@@ -76,9 +99,19 @@ class Trainer:
         arrays or tensors (``data.loader.Loader``, or batches in memory).
         ``model``: a PoseNet on ``device``; by default one drawn from
         ``cfg.train.seed``.  ``init_ckpt_params``: a checkpoint of another
-        stage to start from (weights and BN statistics)."""
+        stage to start from (weights and BN statistics).  Inside a process
+        group the default device is the process's own, and the data is
+        this process's shard."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        n_proc = pdist.process_count()
+        if cfg.train.batch_size % n_proc:
+            raise ValueError(
+                f"batch_size {cfg.train.batch_size} must be divisible by the "
+                f"process count {n_proc} (each process takes an equal share); "
+                f"use --batch-size {(cfg.train.batch_size // n_proc + 1) * n_proc}")
+        self.device = resolve_device(
+            pdist.process_device() if device is None and pdist.is_active()
+            else device)
         self.train_data = train_data
         self.val_data = val_data
         self.subnet = cfg.train.subnet
@@ -127,18 +160,41 @@ class Trainer:
             logger.info("resumed from %s (epoch %d, step %d)", resume,
                         self.last_epoch, self.global_step)
 
+        if n_proc > 1:
+            self._broadcast_from_primary()
+
         self.train_step, self.val_step = STEP_FACTORIES[self.subnet](
             cfg, device=self.device)
 
         self.scheduler = ReduceLROnPlateau(
             cfg.train.init_lr, cfg.train.lr_decay, cfg.train.plateau_patience)
         # the PRN stage's dropout masks (the JAX trainer splits PRNGKey(seed + 1))
+        # (the same seed in every process: each draws the global batch's masks)
         self.generator = torch.Generator(self.device).manual_seed(cfg.train.seed + 1)
-        self.metrics = MetricsWriter(self.save_dir)
+        # several processes: process 0 alone writes checkpoints and metrics;
+        # validation and the plateau scheduler run on every process on the
+        # global mean of the val logs, so learning rates stay in step
+        self.is_primary = pdist.is_primary()
+        self.metrics = MetricsWriter(self.save_dir) if self.is_primary else None
         # checkpoints are written on a background thread; waits happen only
         # where the file must exist (best-copy, preemption, end of training)
-        self.saver = ckpt_lib.AsyncSaver()
+        self.saver = ckpt_lib.AsyncSaver() if self.is_primary else None
         self._stop_requested = False
+
+    def _broadcast_from_primary(self) -> None:
+        """Process 0's parameters, buffers, optimizer state and counters on
+        every process."""
+        for t in self.model.state_dict().values():
+            tdist.broadcast(t, src=0)
+        payload = [{"optimizer": _to_cpu(self.state.optimizer.state_dict()),
+                    "step": self.state.step, "last_epoch": self.last_epoch,
+                    "global_step": self.global_step}]
+        tdist.broadcast_object_list(payload, src=0)
+        got = payload[0]
+        self.state.optimizer.load_state_dict(got["optimizer"])
+        self.state.step = got["step"]
+        self.last_epoch = got["last_epoch"]
+        self.global_step = got["global_step"]
 
     def _load_model_partial(self, path: str) -> None:
         sd, _ = ckpt_lib.restore_model_state_partial(path, self.model.state_dict())
@@ -177,19 +233,23 @@ class Trainer:
 
             if (self.last_epoch % self.cfg.train.save_freq_epoch == 0
                     or self.last_epoch == self.cfg.train.max_epoch):
-                # the save overlaps the end-of-epoch validation
-                path_fut = self.saver.save(
-                    self.save_dir, self.state, self.last_epoch,
-                    self.cfg.train.save_nckpt_max)
+                path_fut = None
+                if self.is_primary:
+                    # the save overlaps the end-of-epoch validation
+                    path_fut = self.saver.save(
+                        self.save_dir, self.state, self.last_epoch,
+                        self.cfg.train.save_nckpt_max)
                 if self.cfg.train.val_nbatch_end_epoch > 0 and self.val_data is not None:
                     val_loss = self.validate(self.cfg.train.val_nbatch_end_epoch)
                     if val_loss < best_loss:
-                        best = ckpt_lib.copy_best(path_fut.result(), val_loss)
-                        logger.info("found better ckpt (%.5f -> %.5f): %s",
-                                    best_loss, val_loss, best)
+                        if path_fut is not None:
+                            best = ckpt_lib.copy_best(path_fut.result(), val_loss)
+                            logger.info("found better ckpt (%.5f -> %.5f): %s",
+                                        best_loss, val_loss, best)
                         best_loss = val_loss
                     self.scheduler.step(val_loss)
-        self.saver.wait()
+        if self.saver is not None:
+            self.saver.wait()
 
     def _flush_logs(self, pending: List[Dict[str, torch.Tensor]], meters
                     ) -> Optional[Dict[str, float]]:
@@ -233,11 +293,12 @@ class Trainer:
                 # step wall time averaged over the print interval
                 step_time = self.batch_timer.toc(average=False) / interval_steps
                 self._print_log(step, n_batches, meters, step_time)
-                self.metrics.write(self.global_step, newest, prefix="train/")
+                if self.metrics is not None:
+                    self.metrics.write(self.global_step, newest, prefix="train/")
                 self.batch_timer.tic()
                 interval_steps = 0
 
-            if self.global_step % cfg.save_freq_step == 0:
+            if self.global_step % cfg.save_freq_step == 0 and self.is_primary:
                 self._flush_logs(pending, meters)
                 self.saver.save(self.save_dir, self.state, self.last_epoch,
                                 cfg.save_nckpt_max, step=self.global_step)
@@ -247,12 +308,14 @@ class Trainer:
                 self.validate(cfg.val_nbatch)
 
             if self._stop_requested:
-                fut = self.saver.save(self.save_dir, self.state, self.last_epoch,
-                                      cfg.save_nckpt_max, step=self.global_step)
-                # this save's own future, not saver.wait(): an earlier
-                # logged failure must not mask the exit checkpoint
-                logger.info("checkpointed at step %d after stop request (%s)",
-                            self.global_step, fut.result())
+                if self.is_primary:
+                    fut = self.saver.save(self.save_dir, self.state,
+                                          self.last_epoch, cfg.save_nckpt_max,
+                                          step=self.global_step)
+                    # this save's own future, not saver.wait(): an earlier
+                    # logged failure must not mask the exit checkpoint
+                    logger.info("checkpointed at step %d after stop request "
+                                "(%s)", self.global_step, fut.result())
                 raise SystemExit(0)
 
             self.data_timer.tic()
@@ -275,7 +338,8 @@ class Trainer:
         means = {k: m.value()[0] for k, m in meters.items()}
         logger.info("validation (%d batches): %s", meters["loss"].n,
                     "  ".join(f"{k}={v:.6f}" for k, v in sorted(means.items())))
-        self.metrics.write(self.global_step, means, prefix="val/")
+        if self.metrics is not None:
+            self.metrics.write(self.global_step, means, prefix="val/")
         return means["loss"]
 
     def _print_log(self, step, n_batches, meters, step_time: float):

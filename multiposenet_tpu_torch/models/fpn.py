@@ -13,7 +13,10 @@ reference ``state_dict`` keys (``fpn.layer3.22.downsample.0.weight``).
 BatchNorm (eps 1e-5) normalises with its running statistics unless a
 forward is given ``train=True``, as the keypoint train step does: then it
 normalises with the batch's statistics and updates the running ones with
-Flax's rule (``BatchNorm``).  The module's own ``training`` flag is not read.
+Flax's rule (``BatchNorm``), over the global batch of every process once
+a train step inside a process group has switched that on
+(``use_global_batch_stats``).  The module's own ``training`` flag is not
+read.
 
 ``fold_bn=True`` builds the inference-only graph of a folded state dict
 (models/fold_bn.py): the trunk convs carry a bias and each trunk BN is a
@@ -27,6 +30,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.nn.functional import all_reduce as differentiable_all_reduce
 
 BN_EPS = 1e-5
 
@@ -66,17 +70,25 @@ class BatchNorm(nn.BatchNorm2d):
     ``running = 0.9 * running + 0.1 * batch`` with that biased variance,
     where ``nn.BatchNorm2d`` would use the unbiased one (n/(n-1) larger).
     The statistics are taken in at least float32.  ``num_batches_tracked``
-    is left as it is: the momentum is fixed."""
+    is left as it is: the momentum is fixed.
+
+    With ``global_stats`` set (``use_global_batch_stats``, which a train
+    step inside a process group calls), ``train=True`` takes the statistics
+    of the global batch of the default process group, as JAX's BatchNorm
+    does under a batch-sharded ``jit`` (``_global_train``)."""
 
     FLAX_MOMENTUM = 0.9
 
     def __init__(self, c: int):
         super().__init__(c, eps=BN_EPS)
+        self.global_stats = False
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        if self.global_stats:
+            return self._global_train(x)
         # One pass for the normalisation and the statistics: at momentum 1.0
         # F.batch_norm writes the batch mean and the unbiased batch variance
         # into the zeroed buffers it is given, which are then folded into the
@@ -91,6 +103,44 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
             self.running_var.mul_(m).add_(var, alpha=(1.0 - m) * (n - 1) / n)
         return out
+
+    def _global_train(self, x: torch.Tensor) -> torch.Tensor:
+        """Batch statistics over every process's batch: the per-channel sum,
+        sum of squares and count, summed over the group by a differentiable
+        all-reduce (its backward all-reduces the gradients, so the backward
+        is the global batch's too).  Flax's fast variance, ``E[x^2] -
+        E[x]^2`` clipped at 0 (the biased variance), normalises and enters
+        the running update; ``n`` is the global count.  The processes'
+        batches may differ in size."""
+        c = x.shape[1]
+        dt = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(dt)
+        local = torch.cat([xs.sum(dim=(0, 2, 3)), (xs * xs).sum(dim=(0, 2, 3)),
+                           xs.new_full((1,), x.numel() // c)])
+        total = differentiable_all_reduce(local)
+        n = total[2 * c]
+        mean = total[:c] / n
+        var = torch.clamp(total[c:2 * c] / n - mean * mean, min=0.0)
+        scale = self.weight.to(dt) * torch.rsqrt(var + self.eps)
+        shift = self.bias.to(dt) - mean * scale
+        out = (xs * scale.view(1, c, 1, 1) + shift.view(1, c, 1, 1)).to(x.dtype)
+        m = self.FLAX_MOMENTUM
+        with torch.no_grad():
+            self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype),
+                                           alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.to(self.running_var.dtype),
+                                          alpha=1.0 - m)
+        return out
+
+
+def use_global_batch_stats(module: nn.Module) -> None:
+    """Make every ``BatchNorm`` in ``module`` take the statistics of the
+    global batch when it trains: one differentiable all-reduce over the
+    default process group per layer and pass (``BatchNorm._global_train``),
+    so every process must run the same forwards."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.global_stats = True
 
 
 class FoldedBN(nn.Module):

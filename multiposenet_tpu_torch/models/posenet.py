@@ -141,11 +141,14 @@ class PoseNet(nn.Module):
             return self._detect(self._features(img))
 
     def prn_forward(self, grid: torch.Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         """(B, gh, gw, 17) -> same-shaped softmax grid; ``train=True``
-        applies dropout with masks drawn from ``generator``."""
+        applies dropout with masks drawn from ``generator`` for slice
+        ``shard`` of the global batch (``subnets.dropout``)."""
         with self._autocast(grid):
-            return self.prn(grid, self.cfg.compute_dtype, train, generator)
+            return self.prn(grid, self.cfg.compute_dtype, train, generator,
+                            shard)
 
     def full_forward(self, img: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -105,15 +105,24 @@ class ClassificationHead(nn.Module):
         return _nchw_to_anchors(torch.sigmoid(self.output(x)), self.num_classes)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator
-            ) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Flax's ``nn.Dropout``: keep each value with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate).  The mask is drawn from
-    ``generator`` (on ``x``'s device), which ``F.dropout`` cannot take."""
+    ``generator`` (on ``x``'s device), which ``F.dropout`` cannot take.
+
+    ``shard=(i, n)``: ``x`` is the i-th of n equal slices of a global batch
+    (process i of n).  The mask is drawn for the whole global batch and the
+    i-th slice kept, so that every process's generator stays in step and n
+    processes mask as one process does."""
     if rate <= 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    i, n = shard
+    b = x.shape[0]
+    draw = torch.rand((n * b,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device)
+    keep = draw[i * b:(i + 1) * b] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -123,7 +132,8 @@ class PRN(nn.Module):
     over the flattened (gh, gw, 17) grid with a softmax over the whole
     vector, taken in at least float32.  With ``train=True``, dropout at
     ``rate`` follows ``dens1`` and ``bneck`` (subnets.py:151-153), its
-    masks drawn from ``generator``; otherwise dropout is the identity.
+    masks drawn from ``generator`` for slice ``shard`` of the global
+    batch (``dropout``); otherwise dropout is the identity.
     """
 
     def __init__(self, node_count: int = 1024, coeff: int = 2,
@@ -137,18 +147,18 @@ class PRN(nn.Module):
         self.dens2 = nn.Linear(node_count, d)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
-                train: bool = False, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                train: bool = False, generator: Optional[torch.Generator] = None,
+                shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
         if train and self.rate > 0.0 and generator is None:
             raise ValueError("PRN training with dropout needs a generator")
         b = x.shape[0]
         res = x.reshape(b, -1).to(compute_dtype)
         out = F.relu(self.dens1(res))
         if train:
-            out = dropout(out, self.rate, generator)
+            out = dropout(out, self.rate, generator, shard)
         out = F.relu(self.bneck(out))
         if train:
-            out = dropout(out, self.rate, generator)
+            out = dropout(out, self.rate, generator, shard)
         out = F.relu(self.dens2(out))
         out = (out + res).to(torch.promote_types(out.dtype, torch.float32))
         return torch.softmax(out, dim=1).reshape(b, self.height, self.width, 17)

@@ -7,6 +7,13 @@ HWIO -> OIHW, Dense kernels (in, out) -> Linear (out, in), BatchNorm
 scale / bias / mean / var -> weight / bias / running_mean / running_var.
 The keys are the reference poseNet's, which ``models/posenet.PoseNet`` uses
 as its module names, so the result loads with ``strict=True``.
+
+The reference's own checkpoint files are HDF5, one dataset per
+``state_dict`` key plus an ``epoch`` attribute (reference
+network/net_utils.py:30-66): ``write_reference_h5`` writes a port
+``state_dict`` in that layout (the counterpart of the JAX package's
+tools/export_torch_ckpt.py) and ``read_reference_h5`` reads one back (of
+tools/convert_torch_ckpt.py).  ``h5py`` is imported when they are called.
 """
 
 from __future__ import annotations
@@ -87,3 +94,35 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unexpected batch_stats leaf {path}")
     return out
+
+
+def write_reference_h5(state_dict: Mapping[str, torch.Tensor], path: str,
+                       epoch: int = -1) -> None:
+    """Write ``state_dict`` in the reference's checkpoint layout: one HDF5
+    dataset per key, floating-point values as float32 (the layout's dtype;
+    the port's parameters are float32 already), integers as they are, and
+    the ``epoch`` attribute."""
+    import h5py
+
+    with h5py.File(path, mode="w") as f:
+        for k, v in state_dict.items():
+            a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            if a.dtype.kind == "f" and a.dtype != np.float32:
+                a = a.astype(np.float32)
+            f.create_dataset(k, data=a)
+        f.attrs["epoch"] = epoch
+
+
+def read_reference_h5(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+    """A checkpoint in the reference's HDF5 layout -> (state_dict of CPU
+    tensors, epoch; -1 without the attribute).  Keys saved from an
+    ``nn.DataParallel`` model lose their ``module.`` prefix."""
+    import h5py
+
+    out: Dict[str, torch.Tensor] = {}
+    with h5py.File(path, mode="r") as f:
+        for k, ds in f.items():
+            key = k[len("module."):] if k.startswith("module.") else k
+            out[key] = torch.from_numpy(np.asarray(ds[()]))
+        epoch = int(f.attrs.get("epoch", -1))
+    return out, epoch
