@@ -65,7 +65,9 @@ Phases (any failure exits non-zero, and no result line is printed):
               grouping, the host chain, detections on every scale, and
               group_size 4 (one group, K1 at B = 8); per variant a warm-up
               pass whose K1 inputs are held against the plain twin, a timed
-              pass with its exact K1 launch count, its rows against the
+              pass with its exact K1 launch count (the host variants, on
+              the default path's forward shapes, in one pass that is
+              both), its rows against the
               default path's; the device's busy share of the default and
               the grouped loop; ``cli test`` on demo/test_images, whose
               two PNGs per image must decode at the image's size;
@@ -119,7 +121,19 @@ Phases (any failure exits non-zero, and no result line is printed):
               against the twin there, then a timed pass equal to it; 9d
               BatchPredictor on a mesh of two entries of the card at batch
               16 on phase 4's 40 images, rows equal to an unsharded
-              predictor's at the per-device batch 8.
+              predictor's at the per-device batch 8;
+  10. gate    the synthetic end-to-end gate at its recipe, as ``python -m
+              multiposenet_tpu_torch.tools.synth_e2e_gate`` runs it: a
+              learnable crowd dataset (144 PNG images from seed 0), the
+              keypoint, detection and PRN stages (ResNet-50) trained on the
+              card with deterministic cuDNN, each from the previous stage's
+              best checkpoint, the 5-scale + flip coco-eval at base
+              capacities of 8 peaks and 8 people so that crowds escalate,
+              AP >= 0.60 and zero truncation asserted, then the ablation's
+              bf16 and host_grouping runs (bf16 within 0.02 AP, host
+              grouping identical); K1's launches equal to the eval's image
+              dispatches, and its inputs on the first eval image held
+              against the twin bit for bit.
 
 Training reaches no hand-written kernel: the conv stack runs on cuDNN, the
 rest as PyTorch ops.  The weights are random, drawn from a seed; the detection output convs are
@@ -1378,6 +1392,12 @@ EVAL_VARIANTS = {
                           len(EVAL_SCALES), 2),
     "group_size_4": (dict(eval=dict(group_size=4)), 1, 8),
 }
+# variants run once, K1's inputs recorded on the timed pass: they run the
+# default path's forward shapes (their cuDNN plans are made) and differ on
+# the host, where the host chain takes seconds an image, so a warm-up pass
+# would double the phase's longest part
+ONE_PASS_VARIANTS = {"host_peaks", "host_image_resize", "host_grouping",
+                     "host_resize"}
 # a keypoint at full resolution sits on the smooth top of an upsampled peak,
 # where the input's rounding moves the maximum by a pixel
 NEAR_PX = 2
@@ -1423,8 +1443,9 @@ def eval_variants(model, full_eval: dict, card: str, device: str = "cuda") -> di
     configuration, the joints' heatmaps evened out and the threshold set
     anew as in 6a) on 4 of 6b's images of one size, so that
     ``group_size`` 4 makes one group.  Per variant: a warm-up pass (cuDNN
-    plans of new shapes), whose K1 inputs are held against the plain twin;
-    a timed pass, whose K1 launches must be those of its path; its rows
+    plans of new shapes), whose K1 inputs are held against the plain twin
+    (on the timed pass for ``ONE_PASS_VARIANTS``); a timed pass, whose K1
+    launches must be those of its path; its rows
     against the default path's (equal for the variants that compute the
     same numbers; for the others, whose inputs or peak finder differ, the
     agreement is printed and a gross fault — a wrong image, mirror or
@@ -1469,14 +1490,16 @@ def eval_variants(model, full_eval: dict, card: str, device: str = "cuda") -> di
         loop_s = time_eval_loop(ev)
         calls, restore = record_nms_inputs()
         try:
-            run_coco_eval(ev, gt, images)
+            if name not in ONE_PASS_VARIANTS:
+                run_coco_eval(ev, gt, images)        # warm-up: K1's inputs
+                restore()
+            cuda_nms.launches = 0
+            metrics, rows = run_coco_eval(ev, gt, images)
+            launches = cuda_nms.launches
         finally:
             restore()
         nms_err = check_eval_nms_inputs(calls, k, (2, batch), name)
         del calls
-        cuda_nms.launches = 0
-        metrics, rows = run_coco_eval(ev, gt, images)
-        launches = cuda_nms.launches
         # an escalated image is dispatched again alone, on the per-image path
         grouped = name.startswith("group")
         expect = ((1 if grouped else n) * per_dispatch
@@ -1571,7 +1594,7 @@ def eval_variants(model, full_eval: dict, card: str, device: str = "cuda") -> di
 
 TRAIN_STAGES = ("keypoint", "detection", "prn")
 # 7b: steps of the warm-up epoch, the timed epoch and the profiled epoch
-TRAIN_EPOCH_STEPS = (3, 20, 8)
+TRAIN_EPOCH_STEPS = (3, 12, 6)
 CHECK_LR = 1e-4
 
 
@@ -2317,7 +2340,7 @@ def cli_phase(card: str, device: str = "cuda", backbone: str = "resnet101",
 # ---------------------------------------------------------------- phase 9
 
 DIST_RANKS = 2
-DIST_KP_STEPS = (3, 10)      # 9b: warm-up and timed steps
+DIST_KP_STEPS = (3, 6)       # 9b: warm-up and timed steps
 
 
 def _counting_ddp(made: list):
@@ -2684,6 +2707,120 @@ def distributed_phase(card: str, serve_state: dict, serve_cfg, serve_images,
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+
+GATE_FLOOR = 0.60
+# the ablation switches phase 10 runs beside the default; fold_bn,
+# host_chain and no_refine are left to the standalone gate
+# (python -m multiposenet_tpu_torch.tools.synth_e2e_gate)
+GATE_ABLATION = ("bf16", "host_grouping")
+
+
+def gate_first_image_nms(coco: str, ckpt: str, device: str = "cuda") -> tuple:
+    """The gate's eval on its first val image, in this process: K1's inputs
+    recorded and held against the plain twin bit for bit, and K1 launched
+    once per dispatch.  Returns (max error, launches, dispatches)."""
+    import argparse
+
+    from multiposenet_tpu_torch import cli
+    from multiposenet_tpu_torch.ops import cuda_nms
+
+    p = argparse.ArgumentParser()
+    cli._common(p)
+    args = p.parse_args(["--coco-root", coco, "--backbone", "resnet50",
+                         "--ckpt", ckpt])
+    cfg, ev = cli._load_eval(args, device=torch.device(device))
+    # the gate's coco-eval capacities (--max-peaks 8 --max-people 8)
+    ev.cfg = dataclasses.replace(
+        ev.cfg, peaks=dataclasses.replace(ev.cfg.peaks, max_peaks_per_joint=8),
+        prn=dataclasses.replace(ev.cfg.prn, max_people=8))
+    calls, restore = record_nms_inputs()
+    cuda_nms.launches = 0
+    try:
+        with deterministic_cudnn():
+            ev.coco_eval(max_images=1)
+    finally:
+        restore()
+    launches, dispatches = cuda_nms.launches, 1 + len(ev.escalated)
+    if launches != dispatches:
+        raise AssertionError(f"gate eval: K1 launched {launches} times for "
+                             f"{dispatches} dispatches of the first image")
+    err = check_eval_nms_inputs(calls, cfg.detection.max_detections,
+                                label="gate eval, first image")
+    return err, launches, dispatches
+
+
+def gate_phase(card: str) -> dict:
+    """Phase 10: the synthetic end-to-end gate at its recipe, as a user runs
+    it (``python -m multiposenet_tpu_torch.tools.synth_e2e_gate``): the
+    crowd dataset, the three stages trained on the card, the 5-scale + flip
+    coco-eval with escalation, the AP floor and zero truncation, the
+    ablation's ``GATE_ABLATION`` switches.  Its figures are held again here
+    from its JSON line and its eval log, K1's launches against the eval's
+    dispatches, and K1's inputs on the first eval image against the twin."""
+    import shutil
+    import tempfile
+
+    from multiposenet_tpu_torch.tools import check_ap_floor
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mpn_gate_smoke_")
+    coco, save = os.path.join(root, "coco"), os.path.join(root, "models")
+    try:
+        cmd = [sys.executable, "-m", "multiposenet_tpu_torch.tools.synth_e2e_gate",
+               "--root", coco, "--save-dir", save, "--floor", str(GATE_FLOOR),
+               "--only", ",".join(GATE_ABLATION)]
+        log(f"gate: {' '.join(cmd[1:])}")
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines, best, first = [], None, None
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                log(f"gate| {lines[-1]}")
+                if lines[-1].startswith("gate: prn best checkpoint "):
+                    best = lines[-1].split("checkpoint ", 1)[1]
+                if lines[-1].startswith("gate: coco-eval done") and best:
+                    # the first eval image again, here, while the gate's
+                    # ablation runs
+                    first = ex.submit(gate_first_image_nms, coco, best)
+            rc = proc.wait()
+        result = None
+        if lines and lines[-1].startswith("{"):
+            result = json.loads(lines[-1])
+        if rc or result is None or not result["passed"]:
+            raise AssertionError(f"the synthetic gate failed (rc {rc}): {result}")
+        if not result["AP"] >= GATE_FLOOR:
+            raise AssertionError(f"gate AP {result['AP']} under {GATE_FLOOR}")
+        bad = check_ap_floor.truncation_lines(os.path.join(save, "coco_eval.log"))
+        if bad:
+            raise AssertionError(f"gate eval truncated: {bad}")
+        dispatches = result["eval_images"] + result["escalated_images"]
+        if result["nms_suppress_launches"] != dispatches:
+            raise AssertionError(
+                f"gate eval: K1 launched {result['nms_suppress_launches']} "
+                f"times for {dispatches} image dispatches")
+        if os.path.abspath(best) != os.path.abspath(result["best_checkpoint"]):
+            raise AssertionError(f"gate: best checkpoint {best} printed, "
+                                 f"{result['best_checkpoint']} reported")
+        err, first_launches, _ = first.result()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    rows = " ".join(f"{k} AP {v['AP']:.4f}" for k, v in (result["ablation"] or {}).items())
+    log(f"gate: AP {result['AP']:.4f} AP50 {result['AP50']:.4f} AP75 "
+        f"{result['AP75']:.4f} AR {result['AR']:.4f} (floor {GATE_FLOOR}); "
+        f"wall s " + " ".join(f"{k} {v:.1f}" for k, v in result["wall_s"].items())
+        + f"; {result['escalated_images']} of {result['eval_images']} eval "
+        f"images escalated, K1 launches {result['nms_suppress_launches']}; "
+        f"ablation {rows}; no deterministic implementation: "
+        f"{result['nondeterministic_ops'] or 'none'}; phase 10 wall "
+        f"{wall:.1f} s [{card}]")
+    return {**result, "launches": result["nms_suppress_launches"],
+            "first_image_launches": first_launches, "max_abs_err": err,
+            "wall_s_phase": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -2870,6 +3007,9 @@ def main() -> int:
     dist = distributed_phase(card, serve_state, cfg, images, eval_inputs,
                              training["keypoint"]["ms_per_step"])
 
+    # ---- 10. the synthetic end-to-end gate: a trained model's AP ------------
+    gate = gate_phase(card)
+
     kernels = [{
         "name": "nms_suppress",
         "route": "cuda",
@@ -2882,7 +3022,8 @@ def main() -> int:
                      + variants["cli_test_launches"]
                      + dist["dryrun_e2e_launches"]
                      + dist["distributed_coco_eval_launches"]
-                     + dist["sharded_serving_launches"]),
+                     + dist["sharded_serving_launches"]
+                     + gate["launches"] + gate["first_image_launches"]),
         "launches_by_path": {"serving": launches["nms_suppress"],
                              "coco_eval": full_eval["launches"],
                              "coco_eval_check": eval_check["launches"],
@@ -2896,10 +3037,13 @@ def main() -> int:
                              "exported_on_cpu": deploy["moved_launches"],
                              "dryrun_e2e": dist["dryrun_e2e_launches"],
                              "distributed_coco_eval": dist["distributed_coco_eval_launches"],
-                             "sharded_serving": dist["sharded_serving_launches"]},
+                             "sharded_serving": dist["sharded_serving_launches"],
+                             "synth_gate_coco_eval": gate["launches"],
+                             "synth_gate_first_image": gate["first_image_launches"]},
         "eval_variant_ms_per_image": {k: v["ms_per_image"]
                                       for k, v in variants["variants"].items()},
         "max_abs_err": max(max_err, full_eval["max_abs_err"], dist["max_abs_err"],
+                           gate["max_abs_err"],
                            *(v["max_abs_err"] for v in variants["variants"].values())),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,

@@ -20,6 +20,8 @@ a counterpart under the same path:
   parallel/            several processes (torch.distributed) and the
                        devices of one process (Mesh, sharded serving)
   utils/               meters, timer, logger, metrics log, profiler window
+  tools/               the synthetic dataset, the COCO index builder, the
+                       ImageNet init, the synthetic end-to-end AP gate
 
 Public tensors keep the JAX package's layouts (NHWC images, (B, H/4, W/4, 18)
 heatmaps, (B, A, 1) / (B, A, 4) detection heads in (y, x, anchor) order), so

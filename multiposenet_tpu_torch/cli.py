@@ -54,6 +54,15 @@ def _common(p: argparse.ArgumentParser):
                         "parameters stay float32)")
 
 
+def _deterministic_flag(p: argparse.ArgumentParser):
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic cuDNN and cuBLAS, deterministic "
+                        "algorithms where PyTorch has them (a warning names "
+                        "each op that has none), and each training batch's "
+                        "augmentation drawn from its own seed, so that a run "
+                        "repeats")
+
+
 def _fold_flag(p: argparse.ArgumentParser):
     p.add_argument("--fold-bn", action="store_true",
                    help="fold the trunk BatchNorms into the convs before "
@@ -83,6 +92,19 @@ def _join_cluster(args):
     pdist.initialize(args.coordinator, num_processes=args.num_processes,
                      process_id=args.process_id, device=device)
     return pdist.process_device() or device
+
+
+def _set_deterministic(args) -> None:
+    """``--deterministic``: before the first CUDA call of the process."""
+    if not args.deterministic:
+        return
+    import torch
+
+    # cuBLAS reads its workspace setting when its handle is created
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
 
 
 def resolve_cli_device():
@@ -136,7 +158,8 @@ def build_config(args, subnet: str):
                                eval=ev)
 
 
-def make_loaders(cfg, subnet: str, training: bool):
+def make_loaders(cfg, subnet: str, training: bool, seed_per_batch: bool = False,
+                 processes: bool = False):
     from multiposenet_tpu_torch.data.coco_json import COCOIndex
     from multiposenet_tpu_torch.data.datasets import (
         DetectionDataset, KeypointDataset, PRNDataset,
@@ -170,17 +193,21 @@ def make_loaders(cfg, subnet: str, training: bool):
     return Loader(ds, pdist.per_host_batch(cfg.train.batch_size),
                   shuffle=training, num_workers=cfg.data.num_workers,
                   shard_id=pdist.process_index(),
-                  num_shards=pdist.process_count())
+                  num_shards=pdist.process_count(),
+                  seed_per_batch=seed_per_batch, processes=processes)
 
 
 def cmd_train(args):
     from multiposenet_tpu_torch.engine.trainer import Trainer
     from multiposenet_tpu_torch.parallel import distributed as pdist
+    _set_deterministic(args)
     device = _join_cluster(args)
     try:
         cfg = build_config(args, args.subnet)
-        train = make_loaders(cfg, args.subnet, True)
-        val = make_loaders(cfg, args.subnet, False)
+        train = make_loaders(cfg, args.subnet, True, args.deterministic,
+                             args.worker_processes)
+        val = make_loaders(cfg, args.subnet, False,
+                           processes=args.worker_processes)
         Trainer(cfg, train_data=train, val_data=val,
                 init_ckpt_params=args.init_params, device=device).train()
     finally:
@@ -204,12 +231,11 @@ def _load_eval(args, subnet="keypoint", device=None):
 
     device = device or resolve_cli_device()
     cfg = build_config(args, subnet)
-    model = build_posenet(cfg.model, device, seed=0)
-    if args.ckpt:
-        # the whole model state: weights AND BN running statistics
-        # (reference load_net, net_utils.py:69-110)
-        sd, _ = ckpt_lib.restore_model_state_partial(args.ckpt, model.state_dict())
-        model.load_state_dict(sd)
+    # the whole model state: weights AND BN running statistics (reference
+    # load_net, net_utils.py:69-110)
+    model = build_posenet(cfg.model, device,
+                          ckpt_lib.model_state_for(args.ckpt, cfg.model)
+                          if args.ckpt else None, seed=0)
     if getattr(args, "fold_bn", False):
         # restored into the unfolded graph first, then folded
         cfg = dataclasses.replace(
@@ -276,6 +302,7 @@ def cmd_coco_eval(args):
         sys.exit(f"error: annotations not found: {ann}")
     # join the group before the model is built; coco_eval then shards the
     # images per process and gathers the rows on process 0
+    _set_deterministic(args)
     device = _join_cluster(args)
     try:
         return _coco_eval(args, device)
@@ -284,7 +311,9 @@ def cmd_coco_eval(args):
 
 
 def _coco_eval(args, device):
+    from multiposenet_tpu_torch.ops import cuda_nms
     from multiposenet_tpu_torch.parallel import distributed as pdist
+    from multiposenet_tpu_torch.utils.logging import logger
     if args.eval_shard and pdist.process_count() > 1:
         # a manual shard in a group would run the same slice in every
         # process and skip the rest
@@ -302,9 +331,14 @@ def _coco_eval(args, device):
                      "(merge shards with `cli merge-results`)")
     _, ev = _load_eval(args, device=device)
     _apply_eval_flags(ev, args)
+    launches = cuda_nms.launches
     metrics = ev.coco_eval(max_images=args.max_images,
                            result_file=args.result_file, bucket=args.bucket,
                            shard=shard, skip_metrics=shard != (0, 1))
+    # read by tools/synth_e2e_gate.py
+    logger.info("coco-eval: %d image(s) re-dispatched at the escalated peak "
+                "tier; nms_suppress kernel launches %d", len(ev.escalated),
+                cuda_nms.launches - launches)
     if args.metrics_file and shard == (0, 1) and pdist.is_primary():
         # written whenever asked (an empty dict when nothing was detected),
         # so that a reader finds a definite verdict, not a missing file
@@ -410,6 +444,11 @@ def main(argv=None):
     pt.add_argument("--init-params", default=None,
                     help="another stage's checkpoint to start from (weights "
                          "and BN statistics)")
+    pt.add_argument("--worker-processes", action="store_true",
+                    help="build the samples in --num-workers processes "
+                         "instead of threads (outside the interpreter lock of "
+                         "the process that runs the steps)")
+    _deterministic_flag(pt)
     _cluster_flags(pt)
     pt.set_defaults(fn=cmd_train)
 
@@ -473,6 +512,7 @@ def main(argv=None):
     pc.add_argument("--eval-shard", default=None, metavar="I:N",
                     help="process only image slice i::n (then `cli "
                          "merge-results`)")
+    _deterministic_flag(pc)
     _cluster_flags(pc)
     pc.set_defaults(fn=cmd_coco_eval)
 

@@ -9,7 +9,7 @@ trainer.py:159-231 do with HDF5 and pickled optimizer sidecars:
 
 - save the whole train state, and prune to the newest ``max_n_ckpts``;
 - auto-resume from the newest checkpoint in save_dir (trainer.py:159-168);
-- best-checkpoint copies by val loss (trainer.py:203-211);
+- best-checkpoint copies by val loss (trainer.py:203-211), hard-linked;
 - PARTIAL loads for staged training: a stage starts from another stage's
   checkpoint; its weights and BN statistics load, the optimizer state does
   not, and shape mismatches and missing keys are tolerated with a warning
@@ -153,9 +153,6 @@ class AsyncSaver:
              step: Optional[int] = None) -> concurrent.futures.Future:
         """Enqueue a ``save_checkpoint``; returns a future of its path.
         Blocks (without raising) until the previous save has finished."""
-        if self._pool is None:
-            self._pool = concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="ckpt-save")
         if self._pending:
             concurrent.futures.wait(self._pending)
             # failures were logged by the done-callback; keep them so that
@@ -168,8 +165,24 @@ class AsyncSaver:
         if device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(device))
-        fut = self._pool.submit(self._write_snapshot, snap, device, ready,
-                                save_dir, epoch, max_n_ckpts, step)
+        fut = self._executor().submit(self._write_snapshot, snap, device, ready,
+                                      save_dir, epoch, max_n_ckpts, step)
+        fut.add_done_callback(self._log_failure)
+        self._pending.append(fut)
+        return fut
+
+    def _executor(self) -> concurrent.futures.ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt-save")
+        return self._pool
+
+    def then(self, fn: Callable, *args) -> concurrent.futures.Future:
+        """Run ``fn(*args)``, which returns a checkpoint's path, on the
+        saver's thread once every save enqueued so far is on disk (a best
+        copy of the newest one); ``wait()`` and the next ``save()`` wait for
+        it as for a save."""
+        fut = self._executor().submit(fn, *args)
         fut.add_done_callback(self._log_failure)
         self._pending.append(fut)
         return fut
@@ -274,10 +287,42 @@ def restore_model_state_partial(path: str, template: Mapping[str, torch.Tensor]
     return out, stats
 
 
+def model_state_for(path: str, model_cfg, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """The model state that ``restore_model_state_partial`` of ``path``
+    gives a PoseNet drawn from ``seed``.  The checkpoint is read over a
+    template of meta tensors first: the random init (seconds on the CPU for
+    the PRN's 71 M weights) is drawn only when the checkpoint lacks some of
+    the model's entries."""
+    from multiposenet_tpu_torch.models.posenet import PoseNet, build_trainable_posenet
+
+    with torch.device("meta"):
+        template = PoseNet(model_cfg).state_dict()
+    sd, _ = restore_model_state_partial(path, template)
+    if any(v.is_meta for v in sd.values()):
+        template = build_trainable_posenet(model_cfg, torch.device("cpu"),
+                                           seed=seed).state_dict()
+        sd, _ = restore_model_state_partial(path, template)
+    return sd
+
+
+def best_path(ckpt_path: str, val_loss: float) -> str:
+    return f"{ckpt_path}_{val_loss:.5f}.best"
+
+
 def copy_best(ckpt_path: str, val_loss: float) -> str:
-    """Best-model copy ``ckpt_{e}_{loss}.best`` (reference trainer.py:203-211)."""
-    best = f"{ckpt_path}_{val_loss:.5f}.best"
+    """Best-model copy ``ckpt_{e}_{loss}.best`` (reference trainer.py:203-211).
+    Its files are hard links to the checkpoint's (a copy where the file
+    system has none): a checkpoint is never written in place, so the copy
+    keeps the content when the checkpoint is pruned, and costs no writes."""
+    best = best_path(ckpt_path, val_loss)
     if os.path.exists(best):
         shutil.rmtree(best)
-    shutil.copytree(ckpt_path, best)
+    shutil.copytree(ckpt_path, best, copy_function=_link_or_copy)
     return best
+
+
+def _link_or_copy(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)

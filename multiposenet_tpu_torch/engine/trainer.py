@@ -5,7 +5,8 @@ multiposenet_tpu/engine/trainer.py.
 - epoch loop with per-step meters and fps/ETA logging (print_freq)
 - periodic step checkpoints (save_freq_step) and epoch checkpoints
 - in-epoch quick validation every val_freq steps (val_nbatch batches)
-- end-of-epoch validation (val_nbatch_end_epoch) and the best-ckpt copy
+- end-of-epoch validation (val_nbatch_end_epoch) and the best-ckpt copy,
+  which replaces the run's previous one
 - ReduceLROnPlateau on the val loss (factor lr_decay, patience, min mode)
 - auto-resume from the newest checkpoint when cfg.train.ckpt is None
 - staged init: partial model load (weights and BN statistics) from another
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import shutil
 import signal
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -43,7 +45,7 @@ from multiposenet_tpu_torch.config import Config, resolve_device
 from multiposenet_tpu_torch.data.loader import device_prefetch
 from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
 from multiposenet_tpu_torch.engine.train_steps import STEP_FACTORIES, create_train_state
-from multiposenet_tpu_torch.models.posenet import PoseNet
+from multiposenet_tpu_torch.models.posenet import PoseNet, build_trainable_posenet
 from multiposenet_tpu_torch.parallel import distributed as pdist
 from multiposenet_tpu_torch.utils.logging import logger
 from multiposenet_tpu_torch.utils.meters import AverageValueMeter
@@ -61,6 +63,16 @@ def _to_cpu(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_cpu(v) for v in obj)
     return obj
+
+
+def _replace_best(path_fut, val_loss: float, previous: Optional[str]) -> str:
+    """The best copy of ``path_fut``'s checkpoint in place of ``previous``;
+    returns the checkpoint's path (``AsyncSaver.wait`` reports it)."""
+    path = path_fut.result()
+    best = ckpt_lib.copy_best(path, val_loss)
+    if previous is not None and previous != best:
+        shutil.rmtree(previous, ignore_errors=True)
+    return path
 
 
 class ReduceLROnPlateau:
@@ -124,15 +136,20 @@ class Trainer:
         self.on_start_epoch_hooks: List[Callable] = []
         self.on_end_epoch_hooks: List[Callable] = []
 
-        self.state = create_train_state(cfg, self.subnet, model=model,
-                                        device=self.device)
-        self.model = self.state.model
-
         # staged init: weights + BN running statistics from another stage's
         # checkpoint (the reference's load_net carries running_mean/var,
         # net_utils.py:69-110; the detection and PRN stages run the trunk's
         # BN on them)
-        if init_ckpt_params:
+        staged = None
+        if init_ckpt_params and model is None:
+            model = build_trainable_posenet(
+                cfg.model, self.device,
+                ckpt_lib.model_state_for(init_ckpt_params, cfg.model, cfg.train.seed))
+            staged = init_ckpt_params
+        self.state = create_train_state(cfg, self.subnet, model=model,
+                                        device=self.device)
+        self.model = self.state.model
+        if init_ckpt_params and staged is None:
             self._load_model_partial(init_ckpt_params)
 
         # resume (reference trainer.py:152-168)
@@ -220,6 +237,7 @@ class Trainer:
 
     def train(self):
         best_loss = float("inf")
+        best_path = None
         for _ in range(self.last_epoch, self.cfg.train.max_epoch):
             self.last_epoch += 1
             logger.info("Start training epoch %d", self.last_epoch)
@@ -243,9 +261,16 @@ class Trainer:
                     val_loss = self.validate(self.cfg.train.val_nbatch_end_epoch)
                     if val_loss < best_loss:
                         if path_fut is not None:
-                            best = ckpt_lib.copy_best(path_fut.result(), val_loss)
+                            best = ckpt_lib.best_path(os.path.abspath(os.path.join(
+                                self.save_dir, f"ckpt_{self.last_epoch}")), val_loss)
                             logger.info("found better ckpt (%.5f -> %.5f): %s",
                                         best_loss, val_loss, best)
+                            # on the saver's thread once the checkpoint is on
+                            # disk; the copy it supersedes holds a worse model
+                            # (the reference keeps every one on disk)
+                            self.saver.then(_replace_best, path_fut, val_loss,
+                                            best_path)
+                            best_path = best
                         best_loss = val_loss
                     self.scheduler.step(val_loss)
         if self.saver is not None:

@@ -16,6 +16,22 @@ canvas equals cv2's pixel for pixel (tests/test_torch_port_render.py):
   ``cvRound`` and de-duplicated;
 - ``fill_convex_poly``: the outline as 8-connected lines, then two edges
   walked down from the top vertex in 16.16 fixed point, one span per row.
+
+The anti-aliased primitives (``LINE_AA``, which the synthetic dataset
+draws with: multiposenet_tpu_torch/tools/make_synth_pose_dataset.py) are
+OpenCV's too:
+
+- ``line_aa``: ``LineAA``, a 16.16 line whose every step along the major
+  axis blends three pixels across it with weights from a Gaussian table,
+  scaled by the slope and, on the first and last two steps, by the
+  endpoints' sub-pixel fractions; each blend is applied twice;
+- ``fill_convex_poly(..., aa=True)``: the outline by ``line_aa``, then the
+  interior spans from each left edge's ceiling to each right edge's floor;
+- ``thick_line_aa`` (``cv2.line`` with ``LINE_AA``): the line's 4-vertex
+  polygon and a filled anti-aliased disc of its width at each end;
+- ``circle_aa`` (filled ``cv2.circle`` with ``LINE_AA``): ``EllipseEx``, a
+  polygon from the double-precision ``ellipse2Poly`` in 16.16 fixed point
+  (a vertex every 90, 30, 18 or 5 degrees by radius), filled as above.
 """
 
 from __future__ import annotations
@@ -46,6 +62,16 @@ _ONE = 1 << _SHIFT
 # drawing.cpp's SinTable: sin of 0..450 whole degrees to 7 decimals, float
 _SIN = np.array([f"{np.sin(np.deg2rad(k)):.7f}" for k in range(451)],
                 np.float64).astype(np.float32)
+# drawing.cpp's SlopeCorrTable and FilterTable (LineAA)
+_SLOPE_CORR = (181, 181, 181, 182, 182, 183, 184, 185, 187, 188, 190, 192,
+               194, 196, 198, 201, 203, 206, 209, 211, 214, 218, 221, 224,
+               227, 231, 235, 238, 242, 246, 250, 254)
+_FILTER = np.array(
+    [168, 177, 185, 194, 202, 210, 218, 224, 231, 236, 241, 246, 249, 252,
+     254, 254, 254, 254, 252, 249, 246, 241, 236, 231, 224, 218, 210, 202,
+     194, 185, 177, 168, 158, 149, 140, 131, 122, 114, 105, 97, 89, 82, 75,
+     68, 62, 56, 50, 45, 40, 36, 32, 28, 25, 22, 19, 16, 14, 12, 11, 9, 8, 7,
+     5, 5], np.int64)
 
 
 def _hline(img: np.ndarray, y: int, x1: int, x2: int, color) -> None:
@@ -120,9 +146,73 @@ def _line_fixed(img: np.ndarray, p1, p2, color) -> None:
             img[y, x] = color
 
 
-def fill_convex_poly(img: np.ndarray, pts, color, shift: int = 0) -> None:
-    """``cv2.fillConvexPoly(img, pts, color, LINE_8, shift)``: integer
-    (x, y) vertices with ``shift`` fractional bits."""
+def line_aa(img: np.ndarray, p1, p2, color) -> None:
+    """OpenCV's ``LineAA``: an anti-aliased line between 16.16 fixed-point
+    points on a uint8 (H, W, C) image, clipped to it."""
+    h, w = img.shape[:2]
+    (x1, y1), (x2, y2), ok = _clip_line(w << _SHIFT, h << _SHIFT, p1, p2)
+    if not ok:
+        return
+    dx, dy = x2 - x1, y2 - y1
+    x_major = abs(dx) > abs(dy)
+    if x_major:
+        if dx < 0:
+            dy = -dy
+            (x1, y1), (x2, y2) = (x2, y2), (x1, y1)
+        step = _trunc_div(dy << _SHIFT, abs(dx) | 1)
+        a0, b0, a1 = x1, y1, x2 + _ONE
+    else:
+        if dy < 0:
+            dx = -dx
+            (x1, y1), (x2, y2) = (x2, y2), (x1, y1)
+        step = _trunc_div(dx << _SHIFT, abs(dy) | 1)
+        a0, b0, a1 = y1, x1, y2 + _ONE
+    # a: the major axis, b: the minor one
+    ecount = (a1 >> _SHIFT) - (a0 >> _SHIFT)
+    b0 += ((step * -(a0 & (_ONE - 1))) >> _SHIFT) + (_ONE >> 1)
+    slope = (step >> (_SHIFT - 5)) & 0x3F
+    slope ^= 0x3F if step < 0 else 0
+    # 4-bit fractions of the end points
+    i = (a0 >> (_SHIFT - 7)) & 0x78
+    j = (a1 >> (_SHIFT - 7)) & 0x78
+    slope = 0x100 if slope & 0x20 else _SLOPE_CORR[slope]
+    t0, t1, t2 = slope << 7, ((0x78 - i) | 4) * slope, (j | 4) * slope
+    ep = np.zeros(9, np.int64)
+    ep[8] = slope
+    ep[1] = ep[3] = ((((j - i) & 0x78) | 4) * slope >> 8) & 0x1FF
+    ep[2] = (t1 >> 8) & 0x1FF
+    ep[4] = ((((j - i) + 0x80) | 4) * slope >> 8) & 0x1FF
+    ep[5] = ((t1 + t0) >> 8) & 0x1FF
+    ep[6] = (t2 >> 8) & 0x1FF
+    ep[7] = ((t2 + t0) >> 8) & 0x1FF
+
+    # every step at once: no pixel is visited twice by one line
+    k = np.arange(ecount + 1, dtype=np.int64)
+    major = (a0 >> _SHIFT) + k
+    minor_fx = b0 + k * step
+    sc, ec = k, ecount - k
+    corr = ep[(((sc >= 2) + 1) & (sc | 2)) * 3 + (((ec >= 2) + 1) & (ec | 2))]
+    dist = (minor_fx >> (_SHIFT - 5)) & 31
+    n_major, n_minor = (w, h) if x_major else (h, w)
+    keep = (major >= 0) & (major < n_major)
+    color = np.asarray(color, np.int64)[: img.shape[2]]
+    for off, tap in ((0, dist + 32), (1, dist), (2, 63 - dist)):
+        minor = (minor_fx >> _SHIFT) - 1 + off
+        sel = keep & (minor >= 0) & (minor < n_minor)
+        if not sel.any():
+            continue
+        a = ((corr[sel] * _FILTER[tap[sel]]) >> 8) & 0xFF
+        ys, xs = (minor[sel], major[sel]) if x_major else (major[sel], minor[sel])
+        px = img[ys, xs].astype(np.int64)
+        for _ in range(2):
+            px += ((color - px) * a[:, None] + 127) >> 8
+        img[ys, xs] = px
+
+
+def fill_convex_poly(img: np.ndarray, pts, color, shift: int = 0,
+                     aa: bool = False) -> None:
+    """``cv2.fillConvexPoly(img, pts, color, LINE_8 or LINE_AA, shift)``:
+    integer (x, y) vertices with ``shift`` fractional bits."""
     h, w = img.shape[:2]
     v = [(int(x), int(y)) for x, y in np.asarray(pts, np.int64).reshape(-1, 2)]
     n = len(v)
@@ -138,7 +228,9 @@ def fill_convex_poly(img: np.ndarray, pts, color, shift: int = 0) -> None:
             ymin, imin = y, i
         ymax, xmax, xmin = max(ymax, y), max(xmax, x), min(xmin, x)
         p = (x << up, y << up)
-        if shift == 0:
+        if aa:
+            line_aa(img, p0, p, color)
+        elif shift == 0:
             px = _line_pixels(w, h, (p0[0] >> _SHIFT, p0[1] >> _SHIFT), (x, y))
             if px is not None:
                 img[px[1], px[0]] = color
@@ -154,8 +246,11 @@ def fill_convex_poly(img: np.ndarray, pts, color, shift: int = 0) -> None:
     edge = [[imin, 1, -_ONE, 0, ymin], [imin, n - 1, -_ONE, 0, ymin]]
     edges = n
     y = ymin
+    # LINE_AA: each span from the left edge's ceiling to the right edge's
+    # floor, and the edges are not advanced on the last row (but the first)
+    lo, hi = (_ONE - 1, 0) if aa else (half, half)
     while True:
-        for e in edge:
+        for e in edge if not aa or y < ymax or y == ymin else ():
             if y < e[4]:
                 continue
             idx0, di = e[0], e[1]
@@ -177,8 +272,8 @@ def fill_convex_poly(img: np.ndarray, pts, color, shift: int = 0) -> None:
             break
         if y >= 0:
             left, right = (1, 0) if edge[0][2] > edge[1][2] else (0, 1)
-            x1 = (edge[left][2] + half) >> _SHIFT
-            x2 = (edge[right][2] + half) >> _SHIFT
+            x1 = (edge[left][2] + lo) >> _SHIFT
+            x2 = (edge[right][2] + hi) >> _SHIFT
             if x2 >= 0 and x1 < w:
                 _hline(img, y, max(x1, 0), min(x2, w - 1), color)
         edge[0][2] += edge[0][3]
@@ -218,9 +313,9 @@ def _thick_line(img, p0, p1, color, thickness: int) -> None:
            (thick + (_ONE >> 1)) >> _SHIFT, color)
 
 
-def ellipse2poly(center, axes, angle: int, arc_start: int, arc_end: int,
-                 delta: int) -> np.ndarray:
-    """``cv2.ellipse2Poly`` with integer arguments: (N, 2) int32 points."""
+def _ellipse_points(center, axes, angle: int, arc_start: int, arc_end: int,
+                    delta: int) -> list:
+    """The double-precision ``ellipse2Poly``: (x, y) float points."""
     angle = int(angle)
     while angle < 0:
         angle += 360
@@ -241,20 +336,85 @@ def ellipse2poly(center, axes, angle: int, arc_start: int, arc_end: int,
     cx, cy = float(center[0]), float(center[1])
     aw, ah = float(axes[0]), float(axes[1])
     out = []
-    prev = None
     for i in range(arc_start, arc_end + delta, delta):
         t = min(i, arc_end)
         t += 360 if t < 0 else 0
         x = aw * float(_SIN[450 - t])
         y = ah * float(_SIN[t])
-        pt = (int(np.rint(cx + x * alpha - y * beta)),
-              int(np.rint(cy + x * beta + y * alpha)))
+        out.append((cx + x * alpha - y * beta, cy + x * beta + y * alpha))
+    return out
+
+
+def ellipse2poly(center, axes, angle: int, arc_start: int, arc_end: int,
+                 delta: int) -> np.ndarray:
+    """``cv2.ellipse2Poly`` with integer arguments: (N, 2) int32 points."""
+    out = []
+    prev = None
+    for x, y in _ellipse_points(center, axes, angle, arc_start, arc_end, delta):
+        pt = (int(np.rint(x)), int(np.rint(y)))
         if pt != prev:
             out.append(pt)
             prev = pt
     if len(out) == 1:
         out = [(int(center[0]), int(center[1]))] * 2
     return np.asarray(out, np.int32).reshape(-1, 2)
+
+
+def _disc_aa(img: np.ndarray, center, radius: int, color) -> None:
+    """OpenCV's ``EllipseEx`` of a full filled circle with ``LINE_AA``:
+    16.16 fixed-point center and radius."""
+    r = abs(int(radius))
+    delta = (r + (_ONE >> 1)) >> _SHIFT
+    delta = 90 if delta < 3 else 30 if delta < 10 else 18 if delta < 15 else 5
+    v = []
+    for x, y in _ellipse_points(center, (r, r), 0, 0, 360, delta):
+        px = int(np.rint(x / _ONE)) << _SHIFT
+        py = int(np.rint(y / _ONE)) << _SHIFT
+        pt = (px + int(np.rint(x - px)), py + int(np.rint(y - py)))
+        if not v or pt != v[-1]:
+            v.append(pt)
+    if len(v) == 1:
+        v = [tuple(center)] * 2
+    fill_convex_poly(img, v, color, _SHIFT, aa=True)
+
+
+def circle_aa(img: np.ndarray, center, radius: int, color) -> None:
+    """``cv2.circle(img, center, radius, color, -1, cv2.LINE_AA)``."""
+    _disc_aa(img, (int(center[0]) << _SHIFT, int(center[1]) << _SHIFT),
+             int(radius) << _SHIFT, color)
+
+
+def thick_line_aa(img: np.ndarray, pt1, pt2, color, thickness: int) -> None:
+    """``cv2.line(img, pt1, pt2, color, thickness, cv2.LINE_AA)`` for
+    integer points: OpenCV's ``ThickLine`` with round caps at both ends
+    (a plain ``line_aa`` at thickness 1).  Above thickness 1, as
+    ``cv2.line`` does, the points are first clipped to the image grown by
+    ``thickness`` on every side."""
+    if thickness <= 1:
+        line_aa(img, (int(pt1[0]) << _SHIFT, int(pt1[1]) << _SHIFT),
+                (int(pt2[0]) << _SHIFT, int(pt2[1]) << _SHIFT), color)
+        return
+    h, w = img.shape[:2]
+    t = int(thickness)
+    (ax, ay), (bx, by), ok = _clip_line(
+        w + 2 * t, h + 2 * t, (int(pt1[0]) + t, int(pt1[1]) + t),
+        (int(pt2[0]) + t, int(pt2[1]) + t))
+    if not ok:
+        return
+    x0, y0 = (ax - t) << _SHIFT, (ay - t) << _SHIFT
+    x1, y1 = (bx - t) << _SHIFT, (by - t) << _SHIFT
+    dx, dy = (x0 - x1) / _ONE, (y1 - y0) / _ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    thick = thickness << (_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (thick + odd * _ONE * 0.5) / np.sqrt(r)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        fill_convex_poly(img, [(x0 + ox, y0 + oy), (x0 - ox, y0 - oy),
+                               (x1 - ox, y1 - oy), (x1 + ox, y1 + oy)],
+                         color, _SHIFT, aa=True)
+    _disc_aa(img, (x0, y0), thick, color)
+    _disc_aa(img, (x1, y1), thick, color)
 
 
 def draw_person(canvas: np.ndarray, joints: Sequence[Sequence[float]],
