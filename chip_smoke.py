@@ -84,7 +84,8 @@ Phases (any failure exits non-zero, and no result line is printed):
               checkpoint, PRN at batch 8 from the detection checkpoint, on
               synthetic in-memory batches: per stage a warm-up epoch, an
               epoch timed with CUDA events, an epoch under torch.profiler,
-              the checkpoint, validation and best copy, one timed
+              the checkpoint, validation and best copy (3 + 8 + 4 steps a
+              stage, cut for phase 11's time), one timed
               AsyncSaver save; every loss finite, the other stages' groups
               bit-unchanged, and the keypoint loss falling over 3 steps on a
               fixed batch;
@@ -113,7 +114,8 @@ Phases (any failure exits non-zero, and no result line is printed):
               NCCL group: a DDP keypoint step, a broadcast, gather_objects;
               9b the keypoint stage at the reference's configuration
               (ResNet-101 float32, 480 px, global batch 6) as 2 processes x
-              3 over gloo, timed, with the gradient all-reduce timed by a
+              3 over gloo, timed (3 + 4 steps), with the
+              gradient all-reduce timed by a
               DDP communication hook; 9c coco_eval auto-sharded over 2
               processes at 6b's configuration on 6b's images, stats and
               rows equal to one process's (deterministic cuDNN in both),
@@ -133,7 +135,30 @@ Phases (any failure exits non-zero, and no result line is printed):
               bf16 and host_grouping runs (bf16 within 0.02 AP, host
               grouping identical); K1's launches equal to the eval's image
               dispatches, and its inputs on the first eval image held
-              against the twin bit for bit.
+              against the twin bit for bit;
+  11. tools   each measurement tool of multiposenet_tpu_torch/tools called
+              through its ``main`` in this process, at full width, on phase
+              4's serving weights and configuration where they match:
+              bench_serving (batch sizes 1, 4, 8, 16; 30 requests; the
+              idle share of each size under the profiler), bench_e2e_stages
+              (batch 64, 5 iterations), bench_reference_shaped (10 images,
+              float32, the serving weights), profile_trace --e2e (5
+              executions; the span must fit the host's wall window and
+              span / N agree with the CUDA-event time), bench_fold_bn (5 iterations),
+              measure_bf16_drift (4 images, 480 px), bench_loader (128
+              images, 8 batches, so that 8 workers have work: 4 and 8
+              workers as threads and as processes, one epoch, batch 16,
+              480 px), bench_trainer_loop (ResNet-101, 480 px, batch 16,
+              bf16: a warm-up epoch of 4 steps, 10 timed steps with one
+              save, the chained step; again with the batches on the device
+              and no save) and bench_train_mfu
+              (keypoint and PRN stages, 10 steps each), the training tools
+              with cuDNN's autotuning off, as `cli train` runs; K1's launches
+              zeroed before each tool that runs it and equal to the tool's
+              dispatches after it, its inputs on the reference-shaped
+              path's first image held against the twin; every rate and
+              latency finite and positive.  Phase 2 also holds and times K1
+              at that path's B = 1 on its own candidates.
 
 Training reaches no hand-written kernel: the conv stack runs on cuDNN, the
 rest as PyTorch ops.  The weights are random, drawn from a seed; the detection output convs are
@@ -289,14 +314,15 @@ def chain_nms_inputs(k: int, gen: torch.Generator):
 
 
 def nms_candidates(pipe, images: torch.Tensor):
-    """The (B, K, 4) boxes and (B, K) valid mask that the serving path hands
-    the suppression kernel for ``images``."""
+    """The (B, K, 4) boxes and (B, K) valid mask that the serving path (an
+    e2e or a full pipeline) hands the suppression kernel for ``images``."""
     from multiposenet_tpu_torch.ops.boxes import clip_boxes, decode_boxes
     from multiposenet_tpu_torch.ops.nms import topk_candidates
 
     det = pipe.cfg.detection
     _, cls, reg = pipe.forward(images)
-    boxes = clip_boxes(decode_boxes(pipe.base.anchors[None], reg.float()), INP, INP)
+    anchors = getattr(pipe, "base", pipe).anchors
+    boxes = clip_boxes(decode_boxes(anchors[None], reg.float()), INP, INP)
     _, _, top_boxes, valid = topk_candidates(boxes, cls.amax(dim=2),
                                              det.max_detections, det.score_thresh)
     return top_boxes.float().contiguous(), valid.contiguous()
@@ -1594,7 +1620,8 @@ def eval_variants(model, full_eval: dict, card: str, device: str = "cuda") -> di
 
 TRAIN_STAGES = ("keypoint", "detection", "prn")
 # 7b: steps of the warm-up epoch, the timed epoch and the profiled epoch
-TRAIN_EPOCH_STEPS = (3, 12, 6)
+# cut from 3 + 20 + 8, then from 3 + 12 + 6, for phase 11's time
+TRAIN_EPOCH_STEPS = (3, 8, 4)
 CHECK_LR = 1e-4
 
 
@@ -2340,7 +2367,8 @@ def cli_phase(card: str, device: str = "cuda", backbone: str = "resnet101",
 # ---------------------------------------------------------------- phase 9
 
 DIST_RANKS = 2
-DIST_KP_STEPS = (3, 6)       # 9b: warm-up and timed steps
+# 9b: warm-up and timed steps (cut from 3 + 10, then from 3 + 6)
+DIST_KP_STEPS = (3, 4)
 
 
 def _counting_ddp(made: list):
@@ -2821,6 +2849,172 @@ def gate_phase(card: str) -> dict:
             "wall_s_phase": wall}
 
 
+# ---------------------------------------------------------------- phase 11
+
+def finite_positive(label: str, **values) -> None:
+    for k, v in values.items():
+        if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0):
+            raise AssertionError(f"{label}: {k} = {v!r}, expected finite and > 0")
+
+
+def tools_phase(card: str, serve_state: dict, cfg, device: str = "cuda",
+                depth: dict = None) -> dict:
+    """Phase 11: each measurement tool of ``multiposenet_tpu_torch/tools``
+    called in this process through its ``main``, at full width.  The
+    inference tools take phase 4's serving model (its weights from
+    ``serve_state``, its configuration ``cfg``; the reference-shaped
+    baseline and the bf16 drift build their float32 twin from the same
+    weights); the training tools draw theirs from seed 0.  For every tool
+    that runs K1 its launch count is zeroed just before and must equal the
+    tool's own dispatch count just after; the reference-shaped path's K1
+    inputs on its first image are held against the twin bit for bit; the
+    trace must reconcile; every rate and latency must be finite and
+    positive.  ``depth`` shrinks the runs (a CPU rehearsal)."""
+    import shutil
+    import tempfile
+
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+    from multiposenet_tpu_torch.ops import cuda_nms
+    from multiposenet_tpu_torch.tools import (
+        bench_e2e_stages, bench_fold_bn, bench_loader, bench_reference_shaped,
+        bench_serving, bench_train_mfu, bench_trainer_loop, measure_bf16_drift,
+        profile_trace)
+
+    d = dict(requests=30, batch_sizes="1,4,8,16", stage_batch=BENCH_BATCH,
+             stage_iters=5, ref_images=10, trace_iters=5, trace_batch=BENCH_BATCH,
+             fold_iters=5, fold_batch=BENCH_BATCH, drift_images=4, size=INP,
+             loader_images=128, loader_workers="4,8", loader_batch=16,
+             loop_batch=16, loop_steps=10, loop_backbone="resnet101",
+             mfu_batch=16, mfu_iters=10, mfu_backbone="resnet101")
+    d.update(depth or {})
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    model = build_posenet(cfg.model, dev, serve_state)
+    out, wall, launches = {}, {}, {}
+
+    def run(name: str, fn, expect=None):
+        cuda_nms.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        n = cuda_nms.launches
+        want = 0 if expect is None else expect(res)
+        if n != want:
+            raise AssertionError(f"tools: {name} launched K1 {n} times, "
+                                 f"expected {want}")
+        if expect is not None:
+            launches[name] = n
+        out[name] = res
+        log(f"tools: {name} in {wall[name]:.1f} s, K1 launches {n}")
+        return res
+
+    size = ["--size", str(d["size"])]
+    r = run("bench_serving", lambda: bench_serving.main(
+        ["--requests", str(d["requests"]), "--batch-sizes", d["batch_sizes"]],
+        device=dev, model=model, cfg=cfg), lambda r: r["predict_calls"])
+    for row in r["rows"]:
+        finite_positive(f"bench_serving batch {row['batch']}", p50=row["p50_ms"],
+                        p95=row["p95_ms"], ips=row["images_per_sec"])
+        if dev.type == "cuda" and not 0.0 <= row["idle_share"] <= 1.0:
+            raise AssertionError(f"bench_serving idle share {row['idle_share']}")
+
+    it = d["stage_iters"]
+    r = run("bench_e2e_stages", lambda: bench_e2e_stages.main(
+        ["--batch", str(d["stage_batch"]), "--iters", str(it)] + size,
+        device=dev, model=model, cfg=cfg), lambda r: 2 + 4 * it)
+    finite_positive("bench_e2e_stages", **{k: r[f"{k}_images_per_sec"]
+                                          for k in "ABCD"},
+                    nbytes=r["pose_assignments_bytes"],
+                    format_ms=r["format_ms_per_batch"])
+
+    # the reference-shaped baseline: the float32 graph of the same weights
+    ref_cfg = bench_reference_shaped.reference_config(cfg.model.backbone)
+    ref_model = build_posenet(ref_cfg.model, dev, serve_state)
+    calls, restore = record_nms_inputs()
+    try:
+        r = run("reference_shaped", lambda: bench_reference_shaped.main(
+            ["--images", str(d["ref_images"])] + size, device=dev,
+            model=ref_model, cfg=ref_cfg), lambda r: 1 + d["ref_images"])
+    finally:
+        restore()
+    finite_positive("reference_shaped", ips=r["value"], ms=r["ms_per_image"])
+    ref_err = check_eval_nms_inputs(calls[:1], ref_cfg.detection.max_detections,
+                                    batches=(1,), label="reference-shaped, first image")
+    del ref_model, calls
+
+    ti = d["trace_iters"]
+    r = run("profile_trace", lambda: profile_trace.main(
+        ["--e2e", "--iters", str(ti), "--batch", str(d["trace_batch"])] + size,
+        device=dev, model=model, cfg=cfg), lambda r: 1 + 2 * ti)
+    if not r["reconciled"]:
+        raise AssertionError(f"profile_trace does not reconcile: {r}")
+    finite_positive("profile_trace", busy=r["device_busy_ms_per_exec"],
+                    span=r["span_ms_per_exec"])
+
+    fi = d["fold_iters"]
+    r = run("fold_bn_ab", lambda: bench_fold_bn.main(
+        ["--iters", str(fi), "--batch", str(d["fold_batch"])] + size,
+        device=dev, model=model, cfg=cfg), lambda r: 2 * (1 + fi))
+    finite_positive("bench_fold_bn", unfolded=r["unfolded_images_per_sec"],
+                    folded=r["fold_bn_images_per_sec"])
+    del model
+
+    r = run("bf16_drift", lambda: measure_bf16_drift.main(
+        ["--images", str(d["drift_images"]), "--backbone", cfg.model.backbone]
+        + size, device=dev, state_dict=serve_state), lambda r: 2)
+    if not all(np.isfinite(v) for v in r.values() if isinstance(v, float)):
+        raise AssertionError(f"bf16 drift not finite: {r}")
+
+    root = tempfile.mkdtemp(prefix="mpn_loader_smoke_")
+    try:
+        r = run("bench_loader", lambda: bench_loader.main(
+            ["--images", str(d["loader_images"]), "--batch", str(d["loader_batch"]),
+             "--epochs", "1", "--workers", d["loader_workers"], "--root", root],
+            device=dev))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for mode, by in r["by_workers"].items():
+        finite_positive(f"bench_loader {mode}", **{f"w{w}": v for w, v in by.items()})
+
+    # the training tools run as `cli train` does and as they do alone: with
+    # cuDNN's autotuning off (the smoke turns it on for serving), which
+    # also spares a ~20 s autotune of the batch-16 step's convolutions
+    torch.backends.cudnn.benchmark = False
+    r = run("bench_trainer_loop", lambda: bench_trainer_loop.main(
+        ["--steps", str(d["loop_steps"]), "--batch", str(d["loop_batch"]),
+         "--backbone", d["loop_backbone"], "--chained",
+         "--save-freq-step", str(d["loop_steps"])] + size, device=dev))
+    finite_positive("bench_trainer_loop", ms=r["value"], chained=r["chained_ms_per_step"])
+    if len(r["save_caller_ms"]) != 1:
+        raise AssertionError(f"bench_trainer_loop: {len(r['save_caller_ms'])} "
+                             "saves in the timed epoch, expected 1")
+    # the same loop with the batches on the device and no save: what the
+    # copies and the save add to the loop
+    r = run("bench_trainer_loop_preput", lambda: bench_trainer_loop.main(
+        ["--steps", str(d["loop_steps"]), "--batch", str(d["loop_batch"]),
+         "--backbone", d["loop_backbone"], "--preput"] + size, device=dev))
+    finite_positive("bench_trainer_loop --preput", ms=r["value"])
+
+    for subnet in ("keypoint", "prn"):
+        r = run(f"train_mfu_{subnet}", lambda: bench_train_mfu.main(
+            ["--subnet", subnet, "--batch", str(d["mfu_batch"]), "--iters",
+             str(d["mfu_iters"]), "--backbone", d["mfu_backbone"]] + size,
+            device=dev))
+        finite_positive(f"bench_train_mfu {subnet}", ms=r["ms_per_step"],
+                        gflops=r["gflops_per_image"])
+        if dev.type == "cuda":
+            finite_positive(f"bench_train_mfu {subnet}", mfu=r["mfu"])
+
+    torch.backends.cudnn.benchmark = True
+    phase_s = time.perf_counter() - t_phase
+    log(f"tools: phase 11 in {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in wall.items()) + f") [{card}]")
+    return {"results": out, "wall_s": wall, "launches": launches,
+            "max_abs_err": ref_err, "phase_s": phase_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -2933,6 +3127,26 @@ def main() -> int:
         f"per launch on the device (CUDA graph), bound {group_bound_ms:.7f} ms "
         f"({group_bound_by}) [{card}]")
 
+    # the reference-shaped baseline's shape (phase 11): one image, K
+    # candidates, from the float32 graph of the serving weights on the
+    # tool's own first image
+    from multiposenet_tpu_torch.engine.inference import make_full_pipeline
+    from multiposenet_tpu_torch.tools import bench_reference_shaped
+    ref_cfg = bench_reference_shaped.reference_config(cfg.model.backbone)
+    ref_pipe = make_full_pipeline(
+        build_posenet(ref_cfg.model, torch.device("cuda"), model.state_dict()),
+        ref_cfg, (INP, INP), device="cuda", with_peaks=False)
+    ob, ov = nms_candidates(ref_pipe, torch.from_numpy(
+        bench_reference_shaped.reference_images(1, INP)[0]).cuda())
+    del ref_pipe
+    max_err = max(max_err, check_nms_kernel(ob, ov, thresh,
+                                            "reference-shaped B=1 inputs")[1])
+    one_ms = graph_time_ms(lambda: cuda_nms.nms_suppress_cuda(ob, ov, thresh))
+    one_bound_ms, one_bound_by = nms_bound_ms(1, K)
+    log(f"kernel nms_suppress at the reference-shaped B=1 K={K}: {one_ms:.5f} ms "
+        f"per launch on the device (CUDA graph), bound {one_bound_ms:.7f} ms "
+        f"({one_bound_by}), bound share {one_bound_ms / one_ms:.5f} [{card}]")
+
     # ---- 3. small reference check -------------------------------------------
     check_against_cpu()
     eval_check = check_eval_against_cpu()                         # phase 6a
@@ -3010,6 +3224,9 @@ def main() -> int:
     # ---- 10. the synthetic end-to-end gate: a trained model's AP ------------
     gate = gate_phase(card)
 
+    # ---- 11. the measurement tools at full width -----------------------------
+    tools = tools_phase(card, serve_state, cfg)
+
     kernels = [{
         "name": "nms_suppress",
         "route": "cuda",
@@ -3023,7 +3240,8 @@ def main() -> int:
                      + dist["dryrun_e2e_launches"]
                      + dist["distributed_coco_eval_launches"]
                      + dist["sharded_serving_launches"]
-                     + gate["launches"] + gate["first_image_launches"]),
+                     + gate["launches"] + gate["first_image_launches"]
+                     + sum(tools["launches"].values())),
         "launches_by_path": {"serving": launches["nms_suppress"],
                              "coco_eval": full_eval["launches"],
                              "coco_eval_check": eval_check["launches"],
@@ -3039,11 +3257,12 @@ def main() -> int:
                              "distributed_coco_eval": dist["distributed_coco_eval_launches"],
                              "sharded_serving": dist["sharded_serving_launches"],
                              "synth_gate_coco_eval": gate["launches"],
-                             "synth_gate_first_image": gate["first_image_launches"]},
+                             "synth_gate_first_image": gate["first_image_launches"],
+                             **tools["launches"]},
         "eval_variant_ms_per_image": {k: v["ms_per_image"]
                                       for k, v in variants["variants"].items()},
         "max_abs_err": max(max_err, full_eval["max_abs_err"], dist["max_abs_err"],
-                           gate["max_abs_err"],
+                           gate["max_abs_err"], tools["max_abs_err"],
                            *(v["max_abs_err"] for v in variants["variants"].values())),
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -3060,6 +3279,8 @@ def main() -> int:
         "eval_shape_bound_ms": eval_bound_ms,
         "group_shape_ms": group_ms,
         "group_shape_bound_ms": group_bound_ms,
+        "reference_shaped_shape_ms": one_ms,
+        "reference_shaped_shape_bound_ms": one_bound_ms,
         "library_ms": None,
         "build_s": build_s.get(cuda_nms.SOURCE),
     }]

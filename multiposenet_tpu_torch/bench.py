@@ -25,8 +25,13 @@ Prints one JSON line with bench.py's keys:
   outside the tensor cores; null on the CPU;
 - ``device_busy_ms_per_exec``: kernel time per e2e batch under
   ``torch.profiler`` (5 batches); null on the CPU;
-- ``vs_baseline``: null.  bench.py divides by 5.93 images/s, a TPU v5e
-  figure, which is no baseline for this port.
+- ``vs_baseline``: ``value`` over ``REFERENCE_IMAGES_PER_SEC``, the
+  reference's serial per-image pattern (batch 1, the whole heatmap to the
+  host, host peaks and grouping) on the port's float32 graph, measured by
+  ``python -m multiposenet_tpu_torch.tools.bench_reference_shaped`` at its
+  defaults on the same card; null on the CPU, where that rate was not
+  measured.  (bench.py's 5.93 images/s is the TPU v5e figure, no baseline
+  for this port.)
 """
 
 from __future__ import annotations
@@ -41,6 +46,11 @@ import torch
 
 # NVIDIA H100 SXM dense peaks (data sheet) for the forward's compute dtype
 PEAK_FLOPS = {"bfloat16": 989.4e12, "float32": 67e12}
+
+# images/s of tools/bench_reference_shaped at its defaults (ResNet-101,
+# 480², float32, 30 images, seed-0 weights) on an NVIDIA H100 80GB HBM3 at
+# a 700.00 W power limit: 51.00 and 51.49 in two runs of one process
+REFERENCE_IMAGES_PER_SEC = 51.0
 
 
 def best_of(n_runs: int, run_once):
@@ -121,15 +131,16 @@ def main(backbone: str = "resnet101", size: int = 480, batch: int = 64,
 
     dt2, _ = best_of(2, detect_once)
 
-    mfu = busy = None
+    mfu = busy = vs_baseline = None
     if on_cuda:
+        vs_baseline = ips / REFERENCE_IMAGES_PER_SEC
         mfu = ips * gflops_per_image * 1e9 / PEAK_FLOPS[dtype_name]
         busy = device_busy_ms(lambda: e2e(imgs, scales)[1].chosen)
     out = {
         "metric": "images_per_sec_per_chip_e2e_pose",
         "value": ips,
         "unit": "images/sec/chip",
-        "vs_baseline": None,
+        "vs_baseline": vs_baseline,
         "detect_peaks_ips": batch * iters2 / dt2,
         "gflops_per_image": gflops_per_image,
         "mfu": mfu,

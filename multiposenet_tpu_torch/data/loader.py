@@ -83,6 +83,13 @@ class Loader:
     def _shard_size(self) -> int:
         return len(self.dataset) // self.num_shards
 
+    def close(self) -> None:
+        """Stop the worker processes (``processes=True``) now rather than
+        when the Loader is collected; a later epoch forks new ones."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
+
     def __len__(self):
         n = self._shard_size()
         if self.drop_last:

@@ -186,6 +186,20 @@ class Bottleneck(nn.Module):
         return F.relu(out + x)
 
 
+def pyramid_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv6`` or ``conv7`` (3x3, stride 2, padding 1) applied to ``x``.
+
+    Over a 1x1 map (P6 at a 64 px input, C5 at 32 px) the output reads the
+    centre tap alone, so there the conv runs as the 1x1 conv of its centre
+    tap: the same output, and a zero gradient for the eight taps that see
+    only padding, as the JAX package computes.  PyTorch's oneDNN
+    convolution backward in bfloat16 on the CPU wrote garbage, NaN at
+    times, into those taps' gradient."""
+    if x.shape[-2:] == (1, 1):
+        return F.conv2d(x, conv.weight[:, :, 1:2, 1:2], conv.bias)
+    return conv(x)
+
+
 class ResNetFPN(nn.Module):
     """ResNet trunk + dual FPN heads; block_counts (3,4,6,3) is resnet50,
     (3,4,23,3) resnet101; ``fold_bn`` builds the folded inference graph."""
@@ -247,8 +261,8 @@ class ResNetFPN(nn.Module):
         hw = lambda t: t.shape[2:4]  # noqa: E731
         det: Tuple[torch.Tensor, ...] = ()
         if detection:
-            p6 = self.conv6(c5)
-            p7 = self.conv7(F.relu(p6))
+            p6 = pyramid_conv(self.conv6, c5)
+            p7 = pyramid_conv(self.conv7, F.relu(p6))
             p5 = self.latlayer1(c5)
             p4 = upsample_nearest(p5, hw(c4)) + self.latlayer2(c4)
             p3 = upsample_nearest(p4, hw(c3)) + self.latlayer3(c3)

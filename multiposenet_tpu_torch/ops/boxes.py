@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from multiposenet_tpu_torch.ops import exp_log
+
 BBOX_STD = (0.1, 0.1, 0.2, 0.2)
 
 
@@ -26,8 +28,8 @@ def decode_boxes(anchors: torch.Tensor, deltas: torch.Tensor,
 
     pred_ctr_x = ctr_x + dx * widths
     pred_ctr_y = ctr_y + dy * heights
-    pred_w = torch.exp(dw) * widths
-    pred_h = torch.exp(dh) * heights
+    pred_w = exp_log.exp(dw) * widths
+    pred_h = exp_log.exp(dh) * heights
     return torch.stack(
         [pred_ctr_x - 0.5 * pred_w, pred_ctr_y - 0.5 * pred_h,
          pred_ctr_x + 0.5 * pred_w, pred_ctr_y + 0.5 * pred_h], dim=-1)
@@ -49,7 +51,7 @@ def encode_boxes(anchors: torch.Tensor, gt: torch.Tensor,
     gy = gt[..., 1] + 0.5 * (gt[..., 3] - gt[..., 1])
 
     t = torch.stack([(gx - ax) / aw, (gy - ay) / ah,
-                     torch.log(gw / aw), torch.log(gh / ah)], dim=-1)
+                     exp_log.log(gw / aw), exp_log.log(gh / ah)], dim=-1)
     # divided by a tensor, as JAX divides by its float32 array
     return t / torch.tensor(std, dtype=t.dtype, device=t.device)
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multiposenet_tpu_torch.ops import exp_log
+
 LN100 = 4.6052
 
 
@@ -44,7 +46,7 @@ def make_heatmaps(joints: torch.Tensor, grid_h: int, grid_w: int,
     # on CUDA and round differently from the JAX division
     denom = torch.tensor(2.0 * sigma * sigma, dtype=torch.float32, device=dev)
     expo = (dy2[..., :, None] + dx2[..., None, :]) / denom   # (B, P, J, H, W)
-    g = torch.where(expo <= LN100, torch.exp(-expo), 0.0)
+    g = torch.where(expo <= LN100, exp_log.exp(-expo), 0.0)
     g = g * draw[..., None, None]
     heat = g.sum(dim=1).clamp(0.0, 1.0)                      # (B, J, H, W)
     return heat.permute(0, 2, 3, 1)

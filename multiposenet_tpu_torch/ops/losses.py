@@ -15,6 +15,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from multiposenet_tpu_torch.ops import exp_log
 from multiposenet_tpu_torch.ops.boxes import box_iou, encode_boxes
 
 
@@ -108,7 +109,7 @@ def focal_loss_single(classification: torch.Tensor, regression: torch.Tensor,
     alpha_factor = torch.where(is_one, alpha, 1.0 - alpha)
     focal_weight = torch.where(is_one, 1.0 - cls, cls)
     focal_weight = alpha_factor * torch.pow(focal_weight, gamma)
-    bce = -(targets * torch.log(cls) + (1.0 - targets) * torch.log(1.0 - cls))
+    bce = -(targets * exp_log.log(cls) + (1.0 - targets) * exp_log.log(1.0 - cls))
     cls_loss = torch.where(targets != -1.0, focal_weight * bce, 0.0)
     cls_loss = cls_loss.sum((-2, -1)) / num_pos.clamp(min=1.0)
 
@@ -149,5 +150,5 @@ def prn_loss(output: torch.Tensor, label: torch.Tensor, eps: float = 1e-12
     """(B, H, W, 17) softmax output in (0, 1) and gaussian targets -> BCE."""
     out = _at_least_f32(output).clamp(eps, 1.0 - eps)
     lbl = _at_least_f32(label)
-    loss = -torch.mean(lbl * torch.log(out) + (1.0 - lbl) * torch.log(1.0 - out))
+    loss = -torch.mean(lbl * exp_log.log(out) + (1.0 - lbl) * exp_log.log(1.0 - out))
     return loss, {"prn_loss": loss}

@@ -68,6 +68,24 @@ def test_anchors_equal_jax_exactly(hw):
         assert got.shape == (43245, 4)
 
 
+def test_exp_log_take_float32_through_float64():
+    """``exp_log.exp``/``log`` of a float32 tensor are the float64
+    functions rounded to float32, bit for bit, with their gradient; float64
+    goes straight to ``torch.exp``/``torch.log``."""
+    from multiposenet_tpu_torch.ops import exp_log
+
+    x = torch.linspace(-20.0, 20.0, 100_001)
+    assert torch.equal(exp_log.exp(x), torch.exp(x.double()).float())
+    pos = x.abs() + 1e-3
+    assert torch.equal(exp_log.log(pos), torch.log(pos.double()).float())
+    assert exp_log.exp(x).dtype == exp_log.log(pos).dtype == torch.float32
+    xd = x.double()
+    assert torch.equal(exp_log.exp(xd), torch.exp(xd))
+    g = pos[:5].clone().requires_grad_(True)
+    exp_log.log(g).sum().backward()
+    torch.testing.assert_close(g.grad, 1.0 / pos[:5], rtol=1.2e-7, atol=0.0)
+
+
 def test_decode_and_clip_boxes_match_jax():
     rng = np.random.RandomState(0)
     anchors = anchors_for_shape((100, 100))

@@ -40,17 +40,42 @@ def edge_joints(rng, b=3, p=4, j=18, size=64):
     return joints
 
 
+def heatmaps_f64(joints, gh, gw, stride=4, sigma=7.0):
+    """The targets with the exponent and the cut-off in float32, as both
+    packages compute them, and exp, sum and clip in float64."""
+    start = np.float32(stride / 2.0 - 0.5)
+    ys = np.arange(gh, dtype=np.float32) * np.float32(stride) + start
+    xs = np.arange(gw, dtype=np.float32) * np.float32(stride) + start
+    dx2 = np.square(xs - joints[..., 0, None])
+    dy2 = np.square(ys - joints[..., 1, None])
+    expo = (dy2[..., :, None] + dx2[..., None, :]) / np.float32(2.0 * sigma * sigma)
+    g = np.where(expo <= np.float32(heatmap.LN100), np.exp(-expo.astype(np.float64)), 0.0)
+    g = g * (joints[..., 2] <= 1.0)[..., None, None]
+    return np.clip(g.sum(axis=1), 0.0, 1.0).transpose(0, 2, 3, 1)
+
+
 def test_make_heatmaps_equals_jax():
     """Batched targets equal JAX's vmapped ones within 2 ulps of 1.0
     (XLA's and PyTorch's exp differ by an ulp; measured 6e-8), and the
-    ln(100) cut-off leaves the same pixels at exactly zero."""
+    ln(100) cut-off leaves the same pixels at exactly zero.  Each side is
+    first held to the same bound against a float64 evaluation of the
+    float32 exponent (measured: JAX 9.9e-8, the port 5.7e-8, the two
+    1.2e-7 apart), so that a difference names the side that moved.  The
+    JAX targets come from one compiled executable.  The 8.4e-5 this test
+    once saw was the port's: MKL's float32 exp on the CPU had run an
+    OpenMP worker thread's share through its low-accuracy kernel; the
+    port now takes the exponential through float64
+    (``ops/exp_log.exp``)."""
     rng = np.random.RandomState(0)
     joints = edge_joints(rng)
     gh, gw = 16, 20
-    want = np.asarray(jax.vmap(
-        lambda jt: jheatmap.make_heatmaps(jt, gh, gw, 4, 7.0))(jnp.asarray(joints)))
+    ref = heatmaps_f64(joints, gh, gw)
+    want = np.asarray(jax.jit(jax.vmap(
+        lambda jt: jheatmap.make_heatmaps(jt, gh, gw, 4, 7.0)))(jnp.asarray(joints)))
     got = heatmap.make_heatmaps(_t(joints), gh, gw, 4, 7.0).numpy()
     assert got.shape == (3, gh, gw, 18)
+    assert np.abs(want - ref).max() <= 2.4e-7, "the JAX targets moved"
+    assert np.abs(got - ref).max() <= 2.4e-7, "the port's targets moved"
     assert np.abs(got - want).max() <= 2.4e-7
     np.testing.assert_array_equal(got == 0, want == 0)
     assert 0 < (want == 0).mean() < 1          # the cut-off is reached
@@ -59,6 +84,23 @@ def test_make_heatmaps_equals_jax():
         np.testing.assert_array_equal(
             heatmap.make_heatmaps_np(joints[i], gh, gw, 4, 7.0),
             jheatmap.make_heatmaps_np(joints[i], gh, gw, 4, 7.0))
+
+
+def test_make_heatmaps_is_bit_equal_on_any_thread_count():
+    """The port's batched targets do not depend on the thread split: 1, 2,
+    3 and 8 torch threads give the same bits, call after call (its exp,
+    product and sum over people are elementwise or reduce in one order)."""
+    joints = _t(edge_joints(np.random.RandomState(0)))
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        want = heatmap.make_heatmaps(joints, 16, 20, 4, 7.0)
+        for n in (2, 3, 8):
+            torch.set_num_threads(n)
+            for _ in range(20):
+                assert torch.equal(heatmap.make_heatmaps(joints, 16, 20, 4, 7.0), want), n
+    finally:
+        torch.set_num_threads(threads)
 
 
 # ---------------------------------------------------------------- blur
