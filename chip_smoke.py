@@ -84,8 +84,8 @@ Phases (any failure exits non-zero, and no result line is printed):
               checkpoint, PRN at batch 8 from the detection checkpoint, on
               synthetic in-memory batches: per stage a warm-up epoch, an
               epoch timed with CUDA events, an epoch under torch.profiler,
-              the checkpoint, validation and best copy (3 + 8 + 4 steps a
-              stage, cut for phase 11's time), one timed
+              the checkpoint, validation and best copy (2 + 6 + 3 steps a
+              stage, cut for phases 11 and 12's time), one timed
               AsyncSaver save; every loss finite, the other stages' groups
               bit-unchanged, and the keypoint loss falling over 3 steps on a
               fixed batch;
@@ -114,7 +114,7 @@ Phases (any failure exits non-zero, and no result line is printed):
               NCCL group: a DDP keypoint step, a broadcast, gather_objects;
               9b the keypoint stage at the reference's configuration
               (ResNet-101 float32, 480 px, global batch 6) as 2 processes x
-              3 over gloo, timed (3 + 4 steps), with the
+              3 over gloo, timed (2 + 3 steps), with the
               gradient all-reduce timed by a
               DDP communication hook; 9c coco_eval auto-sharded over 2
               processes at 6b's configuration on 6b's images, stats and
@@ -130,7 +130,8 @@ Phases (any failure exits non-zero, and no result line is printed):
               keypoint, detection and PRN stages (ResNet-50) trained on the
               card with deterministic cuDNN, each from the previous stage's
               best checkpoint, the 5-scale + flip coco-eval at base
-              capacities of 8 peaks and 8 people so that crowds escalate,
+              capacities of 8 peaks and 8 people so that crowds escalate
+              (6 loader workers: the batches repeat whatever their number),
               AP >= 0.60 and zero truncation asserted, then the ablation's
               bf16 and host_grouping runs (bf16 within 0.02 AP, host
               grouping identical); K1's launches equal to the eval's image
@@ -158,7 +159,22 @@ Phases (any failure exits non-zero, and no result line is printed):
               dispatches after it, its inputs on the reference-shaped
               path's first image held against the twin; every rate and
               latency finite and positive.  Phase 2 also holds and times K1
-              at that path's B = 1 on its own candidates.
+              at that path's B = 1 on its own candidates;
+  12. last tools  the last tools of multiposenet_tpu_torch/tools, each in
+              its own process as a user runs it (the second and third at
+              once), beside phase 10 (both are mostly loaders and process
+              start-up and time nothing on the card): make_demo (ResNet-50, 128 px,
+              200 steps a stage; two scenes, their renders and the JSON,
+              people found in each scene, K1 once per image);
+              train_synth_e2e, the ResNet-101 recipe at full width (480 and
+              608 px, bf16) on 32 + 12 images of 640x480, one epoch a stage,
+              then its 5-scale + flip coco-eval (every stage ran, metrics
+              written, K1 once per eval image dispatch); and
+              real_parity_runbook --dry-run (import-torch, coco-eval fast,
+              reference-exact and bf16 on stand-in crowds at 96 px with
+              the escalated re-dispatch firing, both verdicts 0; K1 once
+              per image dispatch, and once per scale and image on the host
+              chain).  Each process counts its own K1 launches from 0.
 
 Training reaches no hand-written kernel: the conv stack runs on cuDNN, the
 rest as PyTorch ops.  The weights are random, drawn from a seed; the detection output convs are
@@ -1620,8 +1636,9 @@ def eval_variants(model, full_eval: dict, card: str, device: str = "cuda") -> di
 
 TRAIN_STAGES = ("keypoint", "detection", "prn")
 # 7b: steps of the warm-up epoch, the timed epoch and the profiled epoch
-# cut from 3 + 20 + 8, then from 3 + 12 + 6, for phase 11's time
-TRAIN_EPOCH_STEPS = (3, 8, 4)
+# cut from 3 + 20 + 8, then from 3 + 12 + 6 and 3 + 8 + 4, for phases 11
+# and 12's time
+TRAIN_EPOCH_STEPS = (2, 6, 3)
 CHECK_LR = 1e-4
 
 
@@ -2367,8 +2384,8 @@ def cli_phase(card: str, device: str = "cuda", backbone: str = "resnet101",
 # ---------------------------------------------------------------- phase 9
 
 DIST_RANKS = 2
-# 9b: warm-up and timed steps (cut from 3 + 10, then from 3 + 6)
-DIST_KP_STEPS = (3, 4)
+# 9b: warm-up and timed steps (cut from 3 + 10, then from 3 + 6 and 3 + 4)
+DIST_KP_STEPS = (2, 3)
 
 
 def _counting_ddp(made: list):
@@ -2742,6 +2759,10 @@ GATE_FLOOR = 0.60
 # host_chain and no_refine are left to the standalone gate
 # (python -m multiposenet_tpu_torch.tools.synth_e2e_gate)
 GATE_ABLATION = ("bf16", "host_grouping")
+# the gate's loader workers in the smoke (its recipe's 4 elsewhere): under
+# --deterministic each batch is drawn from its own seed, so the batches and
+# the AP repeat whatever the number of workers; the stages are loader-bound
+GATE_WORKERS = 6
 
 
 def gate_first_image_nms(coco: str, ckpt: str, device: str = "cuda") -> tuple:
@@ -2797,7 +2818,7 @@ def gate_phase(card: str) -> dict:
     try:
         cmd = [sys.executable, "-m", "multiposenet_tpu_torch.tools.synth_e2e_gate",
                "--root", coco, "--save-dir", save, "--floor", str(GATE_FLOOR),
-               "--only", ",".join(GATE_ABLATION)]
+               "--only", ",".join(GATE_ABLATION), "--num-workers", str(GATE_WORKERS)]
         log(f"gate: {' '.join(cmd[1:])}")
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -3015,6 +3036,159 @@ def tools_phase(card: str, serve_state: dict, cfg, device: str = "cuda",
             "max_abs_err": ref_err, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------- phase 12
+
+# make_demo at its size with 200 steps a stage (its default is 3000)
+DEMO_ARGS = ("--size", "128", "--steps", "200")
+# the ResNet-101 recipe at full width, 32 + 12 images and one epoch a stage:
+# 8 val images give 14 keypoint val records, less than one batch of 16, so
+# no val loss and no best checkpoint; 12 give 29.  Two loader workers: it
+# runs beside phase 10's loaders
+RECIPE_ARGS = ("--n-train", "32", "--n-val", "12", "--max-epoch", "1",
+               "--num-workers", "2")
+
+
+# intra-op threads of phase 12's processes: they run beside phase 10's, and
+# both feed the card from loader worker processes; all-core thread pools in
+# every process oversubscribe the host's cores
+LAST_TOOLS_THREADS = "2"
+
+
+def run_tool(module: str, args, log_path: str) -> tuple:
+    """``python -m multiposenet_tpu_torch.tools.<module> args``, its output to
+    ``log_path``: (wall s, its last line's JSON object)."""
+    cmd = [sys.executable, "-m", f"multiposenet_tpu_torch.tools.{module}", *args]
+    log(f"last tools: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=dict(os.environ,
+                                     OMP_NUM_THREADS=LAST_TOOLS_THREADS)).returncode
+    wall = time.perf_counter() - t0
+    with open(log_path, errors="replace") as f:
+        lines = f.read().splitlines()
+    if rc or not lines or not lines[-1].startswith("{"):
+        raise AssertionError(f"{module} failed (rc {rc}) after {wall:.1f} s:\n"
+                             + "\n".join(lines[-30:]))
+    return wall, json.loads(lines[-1])
+
+
+def last_tools_phase(card: str, device: str = "cuda", demo_args=DEMO_ARGS,
+                     recipe_args=RECIPE_ARGS) -> dict:
+    """Phase 12: the last tools of multiposenet_tpu_torch/tools, each as a
+    user runs it, one process each, (b) and (c) at once: (a) ``make_demo``
+    (three stages on drawn scenes, then ``Evaluator.test`` on two held-out
+    scenes: each scene, its two renders and the JSON written, people found
+    in each scene, K1 launched once per image); (b) ``train_synth_e2e``, the
+    ResNet-101 recipe at full width (480 and 608 px) on 32 + 12 images, one
+    epoch a stage (every stage ran, the eval wrote its metrics, K1 launched
+    once per eval image dispatch); (c) ``real_parity_runbook --dry-run``
+    (three coco-eval modes, the escalated re-dispatch in the fast and bf16
+    modes, both verdicts 0; K1 once per image dispatch in fast and bf16 and
+    once per scale of each image on the reference-exact host chain).  Each
+    process counts its own K1 launches from 0.  ``demo_args`` and
+    ``recipe_args`` shrink the runs (a CPU rehearsal, ``device="cpu"``,
+    where K1 does not launch)."""
+    import shutil
+    import tempfile
+
+    from multiposenet_tpu_torch.config import EvalConfig
+    from multiposenet_tpu_torch.tools.real_parity_runbook import DRY_MAX_IMAGES
+
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mpn_last_tools_")
+    wall, launches = {}, {}
+    try:
+        # ---- 12a: the demo
+        demo_dir = os.path.join(root, "demo")
+        wall["make_demo"], demo = run_tool(
+            "make_demo", [*demo_args, "--out", demo_dir, "--device", device],
+            os.path.join(root, "make_demo.log"))
+        scenes = sorted(demo["persons_per_scene"])
+        if scenes != ["scene1.png", "scene2.png"] or sorted(
+                os.listdir(os.path.join(demo_dir, "test_images"))) != scenes:
+            raise AssertionError(f"make_demo wrote scenes {scenes}")
+        want = ["multipose_results.json"] + [
+            f"{n[:-4]}_{k}.png" for n in scenes for k in ("1heatmap", "2canvas")]
+        if demo["written"] != sorted(want):
+            raise AssertionError(f"make_demo wrote {demo['written']}")
+        if on_card and not all(demo["persons_per_scene"].values()):
+            raise AssertionError(f"make_demo found no one in a scene: "
+                                 f"{demo['persons_per_scene']}")
+        if demo["nms_suppress_launches"] != (len(scenes) if on_card else 0):
+            raise AssertionError(f"make_demo: K1 launched "
+                                 f"{demo['nms_suppress_launches']} times")
+        launches["make_demo_test"] = demo["nms_suppress_launches"]
+        log(f"last tools: make_demo in {wall['make_demo']:.1f} s (stages "
+            + ", ".join(f"{k} {v:.1f}" for k, v in demo["wall_s"].items())
+            + f" s), people per scene {demo['persons_per_scene']}, K1 "
+            f"launches {launches['make_demo_test']} [{card}]")
+
+        # ---- 12b and 12c at once: the recipe's loaders and the runbook's
+        # process start-ups use different resources
+        save = os.path.join(root, "synth_models")
+        with concurrent.futures.ThreadPoolExecutor(2) as ex:
+            recipe_run = ex.submit(run_tool, "train_synth_e2e", [
+                *recipe_args, "--root", os.path.join(root, "synth"),
+                "--save-dir", save, "--device", device],
+                os.path.join(root, "train_synth_e2e.log"))
+            book_run = ex.submit(run_tool, "real_parity_runbook", [
+                "--dry-run", "--out", os.path.join(root, "parity"),
+                "--device", device], os.path.join(root, "real_parity_runbook.log"))
+            wall["train_synth_e2e"], recipe = recipe_run.result()
+            wall["real_parity_runbook"], book = book_run.result()
+
+        # ---- 12b: the ResNet-101 recipe at smoke depth
+        if set(recipe["wall_s"]) != {"dataset", "keypoint", "detection", "prn",
+                                     "coco_eval"}:
+            raise AssertionError(f"train_synth_e2e ran {sorted(recipe['wall_s'])}")
+        if not os.path.isfile(os.path.join(save, "synth_e2e_metrics.json")):
+            raise AssertionError("train_synth_e2e's eval wrote no metrics file")
+        dispatches = recipe["eval_images"] + recipe["escalated_images"]
+        if recipe["nms_suppress_launches"] != (dispatches if on_card else 0):
+            raise AssertionError(f"train_synth_e2e: K1 launched "
+                                 f"{recipe['nms_suppress_launches']} times for "
+                                 f"{dispatches} eval image dispatches")
+        launches["synth_e2e_coco_eval"] = recipe["nms_suppress_launches"]
+        log(f"last tools: train_synth_e2e in {wall['train_synth_e2e']:.1f} s "
+            "(" + ", ".join(f"{k} {v:.1f}" for k, v in recipe["wall_s"].items())
+            + f" s); AP {recipe['AP']} AR {recipe['AR']}; "
+            f"{recipe['escalated_images']} of {recipe['eval_images']} eval "
+            f"images escalated, K1 launches {launches['synth_e2e_coco_eval']} "
+            f"[{card}]")
+        shutil.rmtree(save, ignore_errors=True)
+
+        # ---- 12c: the parity runbook's dry run
+        if not book["passed"] or book["verdicts"] != {"fast_vs_ref": 0,
+                                                      "bf16_vs_fast": 0}:
+            raise AssertionError(f"runbook dry run: verdicts {book['verdicts']}")
+        n_scales = len(EvalConfig().scale_search)
+        for mode, res in book["modes"].items():
+            if mode != "ref" and not res["escalated_images"]:
+                raise AssertionError(f"runbook {mode}: no escalated re-dispatch")
+            want = (DRY_MAX_IMAGES * n_scales if mode == "ref"
+                    else DRY_MAX_IMAGES + res["escalated_images"])
+            if res["nms_suppress_launches"] != (want if on_card else 0):
+                raise AssertionError(f"runbook {mode}: K1 launched "
+                                     f"{res['nms_suppress_launches']} times, "
+                                     f"expected {want}")
+            launches[f"runbook_{mode}"] = res["nms_suppress_launches"]
+        log(f"last tools: real_parity_runbook --dry-run in "
+            f"{wall['real_parity_runbook']:.1f} s (" + ", ".join(
+                f"{m} {r['wall_s']:.1f} s, {r['escalated_images']} escalated, "
+                f"K1 {r['nms_suppress_launches']}" for m, r in book["modes"].items())
+            + f"); verdicts {book['verdicts']} [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"last tools: phase 12 in {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in wall.items()) + f") [{card}]")
+    return {"wall_s": wall, "launches": launches, "phase_s": phase_s,
+            "demo": demo, "recipe": recipe, "runbook": book}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on a GPU",
@@ -3222,7 +3396,13 @@ def main() -> int:
                              training["keypoint"]["ms_per_step"])
 
     # ---- 10. the synthetic end-to-end gate: a trained model's AP ------------
-    gate = gate_phase(card)
+    # ---- 12. the last tools, in their own processes beside the gate: both
+    # phases are mostly loaders and process start-up, and neither times the
+    # card; each process counts its own K1 launches
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        last_tools = ex.submit(last_tools_phase, card)
+        gate = gate_phase(card)
+        last = last_tools.result()
 
     # ---- 11. the measurement tools at full width -----------------------------
     tools = tools_phase(card, serve_state, cfg)
@@ -3241,7 +3421,8 @@ def main() -> int:
                      + dist["distributed_coco_eval_launches"]
                      + dist["sharded_serving_launches"]
                      + gate["launches"] + gate["first_image_launches"]
-                     + sum(tools["launches"].values())),
+                     + sum(tools["launches"].values())
+                     + sum(last["launches"].values())),
         "launches_by_path": {"serving": launches["nms_suppress"],
                              "coco_eval": full_eval["launches"],
                              "coco_eval_check": eval_check["launches"],
@@ -3258,7 +3439,7 @@ def main() -> int:
                              "sharded_serving": dist["sharded_serving_launches"],
                              "synth_gate_coco_eval": gate["launches"],
                              "synth_gate_first_image": gate["first_image_launches"],
-                             **tools["launches"]},
+                             **tools["launches"], **last["launches"]},
         "eval_variant_ms_per_image": {k: v["ms_per_image"]
                                       for k, v in variants["variants"].items()},
         "max_abs_err": max(max_err, full_eval["max_abs_err"], dist["max_abs_err"],

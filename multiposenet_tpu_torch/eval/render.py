@@ -294,9 +294,35 @@ def rectangle(img: np.ndarray, pt1, pt2, color, thickness: int = 2) -> None:
         p0 = p
 
 
-def _thick_line(img, p0, p1, color, thickness: int) -> None:
-    """OpenCV's ``ThickLine`` of a closed polyline's side (LINE_8,
-    thickness > 1): the side's polygon, then a round cap at its end."""
+def thick_line(img: np.ndarray, pt1, pt2, color, thickness: int) -> None:
+    """``cv2.line(img, pt1, pt2, color, thickness)`` (LINE_8) for integer
+    points and thickness > 1: the points clipped as ``cv2.line`` clips
+    them, then ``ThickLine`` with round caps at both ends."""
+    if thickness <= 1:
+        raise ValueError(f"thick_line draws thickness > 1, not {thickness}")
+    ends = _clip_thick(img, pt1, pt2, thickness)
+    if ends is not None:
+        _thick_line(img, *ends, color, int(thickness), start_cap=True)
+
+
+def _clip_thick(img: np.ndarray, pt1, pt2, thickness: int):
+    """``cv2.line``'s first step above thickness 1: the integer points
+    clipped to the image grown by ``thickness`` on every side, or None
+    when the segment misses it."""
+    h, w = img.shape[:2]
+    t = int(thickness)
+    (ax, ay), (bx, by), ok = _clip_line(
+        w + 2 * t, h + 2 * t, (int(pt1[0]) + t, int(pt1[1]) + t),
+        (int(pt2[0]) + t, int(pt2[1]) + t))
+    return ((ax - t, ay - t), (bx - t, by - t)) if ok else None
+
+
+def _thick_line(img, p0, p1, color, thickness: int,
+                start_cap: bool = False) -> None:
+    """OpenCV's ``ThickLine`` (LINE_8, thickness > 1): the segment's
+    polygon, then a round cap at its end, and with ``start_cap`` one at its
+    start first (``cv2.line``; a closed polyline's side has the end cap
+    alone)."""
     x0, y0 = p0[0] << _SHIFT, p0[1] << _SHIFT
     x1, y1 = p1[0] << _SHIFT, p1[1] << _SHIFT
     dx, dy = (x0 - x1) / _ONE, (y1 - y0) / _ONE
@@ -309,8 +335,9 @@ def _thick_line(img, p0, p1, color, thickness: int) -> None:
         fill_convex_poly(img, [(x0 + ox, y0 + oy), (x0 - ox, y0 - oy),
                                (x1 - ox, y1 - oy), (x1 + ox, y1 + oy)],
                          color, _SHIFT)
-    circle(img, ((x1 + (_ONE >> 1)) >> _SHIFT, (y1 + (_ONE >> 1)) >> _SHIFT),
-           (thick + (_ONE >> 1)) >> _SHIFT, color)
+    for x, y in ((x0, y0), (x1, y1))[0 if start_cap else 1:]:
+        circle(img, ((x + (_ONE >> 1)) >> _SHIFT, (y + (_ONE >> 1)) >> _SHIFT),
+               (thick + (_ONE >> 1)) >> _SHIFT, color)
 
 
 def _ellipse_points(center, axes, angle: int, arc_start: int, arc_end: int,
@@ -394,15 +421,12 @@ def thick_line_aa(img: np.ndarray, pt1, pt2, color, thickness: int) -> None:
         line_aa(img, (int(pt1[0]) << _SHIFT, int(pt1[1]) << _SHIFT),
                 (int(pt2[0]) << _SHIFT, int(pt2[1]) << _SHIFT), color)
         return
-    h, w = img.shape[:2]
-    t = int(thickness)
-    (ax, ay), (bx, by), ok = _clip_line(
-        w + 2 * t, h + 2 * t, (int(pt1[0]) + t, int(pt1[1]) + t),
-        (int(pt2[0]) + t, int(pt2[1]) + t))
-    if not ok:
+    ends = _clip_thick(img, pt1, pt2, thickness)
+    if ends is None:
         return
-    x0, y0 = (ax - t) << _SHIFT, (ay - t) << _SHIFT
-    x1, y1 = (bx - t) << _SHIFT, (by - t) << _SHIFT
+    (ax, ay), (bx, by) = ends
+    x0, y0 = ax << _SHIFT, ay << _SHIFT
+    x1, y1 = bx << _SHIFT, by << _SHIFT
     dx, dy = (x0 - x1) / _ONE, (y1 - y0) / _ONE
     r = dx * dx + dy * dy
     odd = thickness & 1

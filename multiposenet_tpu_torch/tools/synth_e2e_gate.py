@@ -27,6 +27,12 @@ the eval, the number of images re-dispatched at the escalated tier,
 kernel K1's launches in the eval, the ops that had no deterministic
 implementation, and the ablation's rows.
 
+The dataset, the stages and the eval are one runner (``run_recipe``) over
+a ``Recipe`` table, shared with the ResNet-101 recipe of
+tools/train_synth_e2e.py.  A tree is made again unless its ``MARKER`` file
+holds the generator flags of the recipe at hand, so one recipe never
+trains on another's tree.
+
 Usage:
   python -m multiposenet_tpu_torch.tools.synth_e2e_gate \\
       [--root DIR] [--save-dir DIR] [--floor 0.60] [--precision bf16|f32] \\
@@ -39,6 +45,7 @@ at the defaults.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -46,13 +53,39 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Tuple
 
 from multiposenet_tpu_torch.tools import ap_ablation, check_ap_floor
 
-MARKER = ".v2_crowds"   # regenerates a tree from before the crowd scenes
+# holds the generator flags that made the tree
+MARKER = ".synth_tree"
 ABLATION_TOL = 0.02     # |dAP| of a bounded ablation switch
-STAGES = (
+EXP = {"keypoint": "kp", "detection": "det", "prn": "prn"}
+BEST_RE = re.compile(r"ckpt_(\d+)_[-+.\deE]+\.best$")
+NONDET_RE = re.compile(r"(\S+) does not have a deterministic implementation")
+LAUNCH_RE = re.compile(r"coco-eval: (\d+) image\(s\) re-dispatched at the "
+                       r"escalated peak tier; nms_suppress kernel launches (\d+)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Recipe:
+    """A staged recipe on the synthetic dataset: the tree it trains on (seed
+    0), the backbone, each stage's CLI flags and the eval's."""
+    name: str                  # prefix of its log lines and result files
+    root: str
+    save_dir: str
+    n_train: int
+    n_val: int
+    width: int
+    height: int
+    crowd_frac: float
+    backbone: str
     # (stage, CLI flags of the recipe, bf16 under --precision bf16)
+    stages: Tuple[Tuple[str, dict, bool], ...]
+    eval_flags: Tuple[str, ...] = ()
+
+
+STAGES = (
     ("keypoint", {"--inp-size": 240, "--batch-size": 16, "--max-epoch": 30,
                   "--num-workers": 4}, True),
     ("detection", {"--inp-size": 320, "--batch-size": 8, "--lr": 1e-4,
@@ -60,11 +93,10 @@ STAGES = (
     ("prn", {"--batch-size": 8, "--lr": 1e-3, "--max-epoch": 12,
              "--num-workers": 4}, False),
 )
-EXP = {"keypoint": "kp", "detection": "det", "prn": "prn"}
-BEST_RE = re.compile(r"ckpt_(\d+)_[-+.\deE]+\.best$")
-NONDET_RE = re.compile(r"(\S+) does not have a deterministic implementation")
-LAUNCH_RE = re.compile(r"coco-eval: (\d+) image\(s\) re-dispatched at the "
-                       r"escalated peak tier; nms_suppress kernel launches (\d+)")
+GATE = Recipe("gate", "./extra/mpn_gate_coco", "./extra/mpn_gate_models",
+              n_train=128, n_val=16, width=320, height=240, crowd_frac=0.3,
+              backbone="resnet50", stages=STAGES,
+              eval_flags=("--max-peaks", "8", "--max-people", "8"))
 
 
 class GateError(RuntimeError):
@@ -93,9 +125,9 @@ def prune_stage(save_dir: str, exp: str, keep: str) -> None:
             shutil.rmtree(path)
 
 
-def run_stage(name: str, cmd, env, log_path: str) -> float:
+def run_stage(name: str, cmd, env, log_path: str, prefix: str = "gate") -> float:
     """Run one CLI subprocess, its output to ``log_path``; its wall s."""
-    print(f"gate: {name}: {' '.join(cmd[2:])}", flush=True)
+    print(f"{prefix}: {name}: {' '.join(cmd[2:])}", flush=True)
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         r = subprocess.run(cmd, env=env, stdout=log, stderr=subprocess.STDOUT)
@@ -106,29 +138,25 @@ def run_stage(name: str, cmd, env, log_path: str) -> float:
         sys.stdout.write("".join(tail))
         raise GateError(f"{name} failed (rc {r.returncode}) after {wall:.1f} s; "
                         f"log {log_path}")
-    print(f"gate: {name} done in {wall:.1f} s", flush=True)
+    print(f"{prefix}: {name} done in {wall:.1f} s", flush=True)
     return wall
 
 
-def parse_args(argv=None):
+def recipe_parser(recipe: Recipe) -> argparse.ArgumentParser:
+    """The options every recipe takes, with ``recipe``'s defaults."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default="./extra/mpn_gate_coco",
-                    help="the synthetic COCO tree (generated if it lacks "
-                         f"the {MARKER} marker)")
-    ap.add_argument("--save-dir", default="./extra/mpn_gate_models")
-    ap.add_argument("--floor", type=float, default=0.60)
+    ap.add_argument("--root", default=recipe.root,
+                    help="the synthetic COCO tree (made again unless its "
+                         f"{MARKER} file names this recipe's generator flags)")
+    ap.add_argument("--save-dir", default=recipe.save_dir)
     ap.add_argument("--precision", default="bf16", choices=["bf16", "f32"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--no-ablation", action="store_true",
-                    help="skip the AP ablation (the JAX gate's ABLATIONS=0)")
-    ap.add_argument("--only", default=None,
-                    help="ablation switches to run (ap_ablation --only)")
-    ap.add_argument("--backbone", default="resnet50")
+    ap.add_argument("--backbone", default=recipe.backbone)
     # the recipe's sizes, to shrink it for a quick run
-    ap.add_argument("--n-train", type=int, default=128)
-    ap.add_argument("--n-val", type=int, default=16)
-    ap.add_argument("--width", type=int, default=320)
-    ap.add_argument("--height", type=int, default=240)
+    ap.add_argument("--n-train", type=int, default=recipe.n_train)
+    ap.add_argument("--n-val", type=int, default=recipe.n_val)
+    ap.add_argument("--width", type=int, default=recipe.width)
+    ap.add_argument("--height", type=int, default=recipe.height)
     ap.add_argument("--kp-inp-size", type=int, default=None)
     ap.add_argument("--det-inp-size", type=int, default=None)
     ap.add_argument("--eval-inp-size", type=int, default=None)
@@ -137,6 +165,16 @@ def parse_args(argv=None):
     ap.add_argument("--max-epoch", type=int, default=None,
                     help="every stage's epochs")
     ap.add_argument("--num-workers", type=int, default=None)
+    return ap
+
+
+def parse_args(argv=None):
+    ap = recipe_parser(GATE)
+    ap.add_argument("--floor", type=float, default=0.60)
+    ap.add_argument("--no-ablation", action="store_true",
+                    help="skip the AP ablation (the JAX gate's ABLATIONS=0)")
+    ap.add_argument("--only", default=None,
+                    help="ablation switches to run (ap_ablation --only)")
     return ap.parse_args(argv)
 
 
@@ -152,31 +190,46 @@ def stage_flags(args, stage: str, base) -> list:
     return [str(x) for kv in flags.items() for x in kv]
 
 
-def run_gate(args) -> dict:
+def ensure_dataset(args, recipe: Recipe, env) -> float:
+    """The recipe's tree under ``args.root``, made unless its marker names
+    the same generator flags; the wall s it took (0 when reused).  Makes
+    ``args.save_dir``, where the logs go."""
+    os.makedirs(args.save_dir, exist_ok=True)
+    flags = ["--seed", "0", "--n-train", str(args.n_train), "--n-val",
+             str(args.n_val), "--width", str(args.width), "--height",
+             str(args.height), "--crowd-frac", str(recipe.crowd_frac)]
+    marker = os.path.join(args.root, MARKER)
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if f.read() == " ".join(flags):
+                return 0.0
+        os.remove(marker)
+    os.makedirs(args.root, exist_ok=True)
+    cmd = [sys.executable, "-m",
+           "multiposenet_tpu_torch.tools.make_synth_pose_dataset",
+           "--root", args.root] + flags
+    wall = run_stage("dataset", cmd, env,
+                     os.path.join(args.save_dir, "dataset.log"), recipe.name)
+    with open(marker, "w") as f:
+        f.write(" ".join(flags))
+    return wall
+
+
+def run_recipe(args, recipe: Recipe) -> dict:
+    """The tree, the three stages, each from the previous stage's best
+    checkpoint, and the eval; raises ``GateError`` at the first failing
+    step.  Returns the eval's AP, AP50, AP75, AR, the wall s of each step,
+    the escalated images, K1's launches and the best checkpoint."""
     if args.device == "cuda":
         import torch
         if not torch.cuda.is_available():
-            raise GateError("no CUDA device: the gate runs on the GPU unless "
-                            "--device cpu is given")
+            raise GateError(f"no CUDA device: the {recipe.name} runs on the "
+                            "GPU unless --device cpu is given")
     env = dict(os.environ)
     env["PYTHONUNBUFFERED"] = "1"
     if args.device == "cpu":
         env["MPN_PLATFORM"] = "cpu"
-    os.makedirs(args.save_dir, exist_ok=True)
-    wall = {}
-
-    wall["dataset"] = 0.0
-    if not os.path.exists(os.path.join(args.root, MARKER)):
-        cmd = [sys.executable, "-m",
-               "multiposenet_tpu_torch.tools.make_synth_pose_dataset",
-               "--root", args.root, "--seed", "0",
-               "--n-train", str(args.n_train), "--n-val", str(args.n_val),
-               "--width", str(args.width), "--height", str(args.height),
-               "--crowd-frac", "0.3"]
-        os.makedirs(args.root, exist_ok=True)
-        wall["dataset"] = run_stage("dataset", cmd, env,
-                                    os.path.join(args.save_dir, "dataset.log"))
-        open(os.path.join(args.root, MARKER), "w").close()
+    wall = {"dataset": ensure_dataset(args, recipe, env)}
 
     cli = [sys.executable, "-m", "multiposenet_tpu_torch.cli"]
     common = ["--coco-root", args.root, "--backbone", args.backbone,
@@ -184,28 +237,29 @@ def run_gate(args) -> dict:
               "--worker-processes"]
     init = None
     nondet = set()
-    for stage, base, bf16 in STAGES:
+    for stage, base, bf16 in recipe.stages:
         cmd = (cli + ["train", "--subnet", stage] + common
                + ["--exp-name", EXP[stage]] + stage_flags(args, stage, base)
                + (["--bf16"] if bf16 and args.precision == "bf16" else [])
                + (["--init-params", init] if init else []))
         log = os.path.join(args.save_dir, f"{stage}.log")
-        wall[stage] = run_stage(stage, cmd, env, log)
+        wall[stage] = run_stage(stage, cmd, env, log, recipe.name)
         with open(log, errors="replace") as f:
             nondet |= set(NONDET_RE.findall(f.read()))
         init = best_checkpoint(args.save_dir, EXP[stage])
         prune_stage(args.save_dir, EXP[stage], init)
-        print(f"gate: {stage} best checkpoint {init}", flush=True)
+        print(f"{recipe.name}: {stage} best checkpoint {init}", flush=True)
 
-    metrics_file = os.path.join(args.save_dir, "gate_metrics.json")
+    metrics_file = os.path.join(args.save_dir, f"{recipe.name}_metrics.json")
     eval_log = os.path.join(args.save_dir, "coco_eval.log")
     cmd = (cli + ["coco-eval", "--coco-root", args.root, "--backbone",
                   args.backbone, "--ckpt", init, "--deterministic",
-                  "--max-peaks", "8", "--max-people", "8",
-                  "--result-file", os.path.join(args.save_dir, "gate_results.json"),
+                  *recipe.eval_flags,
+                  "--result-file", os.path.join(args.save_dir,
+                                                f"{recipe.name}_results.json"),
                   "--metrics-file", metrics_file]
            + (["--inp-size", str(args.eval_inp_size)] if args.eval_inp_size else []))
-    wall["coco_eval"] = run_stage("coco-eval", cmd, env, eval_log)
+    wall["coco_eval"] = run_stage("coco-eval", cmd, env, eval_log, recipe.name)
     with open(eval_log, errors="replace") as f:
         text = f.read()
     found = LAUNCH_RE.findall(text)
@@ -214,19 +268,25 @@ def run_gate(args) -> dict:
     escalated, launches = (int(v) for v in found[-1])
     with open(metrics_file) as f:
         metrics = json.load(f)
-
-    ap_ok = check_ap_floor.check(metrics_file, args.floor)
-    trunc_ok = check_ap_floor.check_no_truncation(eval_log)
+    with open(os.path.join(args.root, "annotations",
+                           "person_keypoints_val2017.json")) as f:
+        eval_images = len(json.load(f)["images"])
     out = {k: metrics.get(k) for k in ("AP", "AP50", "AP75", "AR")}
-    out.update(floor=args.floor, precision=args.precision,
-               wall_s=wall, escalated_images=escalated,
+    out.update(precision=args.precision, wall_s=wall,
+               escalated_images=escalated,
                crowd_overflows=text.count("crowd overflow"),
-               nms_suppress_launches=launches,
-               eval_images=len(json.load(open(os.path.join(
-                   args.root, "annotations", "person_keypoints_val2017.json"))
-               )["images"]),
-               nondeterministic_ops=sorted(nondet),
-               best_checkpoint=init, ablation=None)
+               nms_suppress_launches=launches, eval_images=eval_images,
+               nondeterministic_ops=sorted(nondet), best_checkpoint=init)
+    return out
+
+
+def run_gate(args) -> dict:
+    out = run_recipe(args, GATE)
+    metrics_file = os.path.join(args.save_dir, f"{GATE.name}_metrics.json")
+    ap_ok = check_ap_floor.check(metrics_file, args.floor)
+    trunc_ok = check_ap_floor.check_no_truncation(
+        os.path.join(args.save_dir, "coco_eval.log"))
+    out.update(floor=args.floor, ablation=None)
     if not (ap_ok and trunc_ok):
         out["passed"] = False
         return out
@@ -234,6 +294,7 @@ def run_gate(args) -> dict:
     if not args.no_ablation:
         t0 = time.perf_counter()
         abl_dir = os.path.join(args.save_dir, "ablation")
+        init = out["best_checkpoint"]
         abl = ["--coco-root", args.root, "--ckpt", init, "--backbone",
                args.backbone, "--out-dir", abl_dir, "--assert-tol",
                str(ABLATION_TOL), "--device", args.device]
@@ -245,7 +306,7 @@ def run_gate(args) -> dict:
         if args.eval_inp_size:
             abl += ["--inp-size", str(args.eval_inp_size)]
         rc = ap_ablation.main(abl)
-        wall["ablation"] = time.perf_counter() - t0
+        out["wall_s"]["ablation"] = time.perf_counter() - t0
         with open(os.path.join(abl_dir, "ablation.json")) as f:
             out["ablation"] = {k: {s: v.get(s) for s in ("AP", "AP50")}
                                for k, v in json.load(f).items()}

@@ -1,1 +1,2 @@
-"""Host utilities of the training engine: meters, timer, logger, metrics."""
+"""Host utilities: the training engine's meters, timer, logger and metrics,
+and the reference's HDF5 checkpoint files (``h5file``)."""

@@ -13,7 +13,8 @@ The reference's own checkpoint files are HDF5, one dataset per
 network/net_utils.py:30-66): ``write_reference_h5`` writes a port
 ``state_dict`` in that layout (the counterpart of the JAX package's
 tools/export_torch_ckpt.py) and ``read_reference_h5`` reads one back (of
-tools/convert_torch_ckpt.py).  ``h5py`` is imported when they are called.
+tools/convert_torch_ckpt.py), through ``utils/h5file`` (numpy alone; the
+port needs no ``h5py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from multiposenet_tpu_torch.utils.h5file import read_h5, write_h5
 
 # Flax top-level module -> attribute prefix on PoseNet; the keypoint-head
 # convs sit on PoseNet itself, hence the empty prefix
@@ -102,27 +105,22 @@ def write_reference_h5(state_dict: Mapping[str, torch.Tensor], path: str,
     dataset per key, floating-point values as float32 (the layout's dtype;
     the port's parameters are float32 already), integers as they are, and
     the ``epoch`` attribute."""
-    import h5py
-
-    with h5py.File(path, mode="w") as f:
-        for k, v in state_dict.items():
-            a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-            if a.dtype.kind == "f" and a.dtype != np.float32:
-                a = a.astype(np.float32)
-            f.create_dataset(k, data=a)
-        f.attrs["epoch"] = epoch
+    arrays = {}
+    for k, v in state_dict.items():
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        if a.dtype.kind == "f" and a.dtype != np.float32:
+            a = a.astype(np.float32)
+        arrays[k] = a
+    write_h5(path, arrays, {"epoch": epoch})
 
 
 def read_reference_h5(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
     """A checkpoint in the reference's HDF5 layout -> (state_dict of CPU
     tensors, epoch; -1 without the attribute).  Keys saved from an
     ``nn.DataParallel`` model lose their ``module.`` prefix."""
-    import h5py
-
+    arrays, attrs = read_h5(path)
     out: Dict[str, torch.Tensor] = {}
-    with h5py.File(path, mode="r") as f:
-        for k, ds in f.items():
-            key = k[len("module."):] if k.startswith("module.") else k
-            out[key] = torch.from_numpy(np.asarray(ds[()]))
-        epoch = int(f.attrs.get("epoch", -1))
-    return out, epoch
+    for k, a in arrays.items():
+        key = k[len("module."):] if k.startswith("module.") else k
+        out[key] = torch.from_numpy(a)
+    return out, int(attrs["epoch"]) if "epoch" in attrs else -1

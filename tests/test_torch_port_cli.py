@@ -19,6 +19,7 @@ from multiposenet_tpu import cli as jcli
 
 import chip_smoke
 from multiposenet_tpu_torch import cli
+from torch_port_helpers import model_files  # noqa: F401 (a fixture)
 
 
 def _args(**kw):
@@ -79,10 +80,10 @@ def test_make_loaders_match_jax(tree, subnet):
                                      want.shuffle, want.num_workers)
 
 
-def test_cli_end_to_end_on_cpu(tree, tmp_path, monkeypatch):
+def test_cli_end_to_end_on_cpu(tree, model_files, monkeypatch):
     monkeypatch.setenv("MPN_PLATFORM", "cpu")
     root, info = tree
-    save = str(tmp_path / "models")
+    save = str(model_files / "models")
     common = ["--coco-root", root, "--backbone", "resnet50", "--save-dir", save,
               "--num-workers", "2", "--inp-size", "64", "--exp-name", "kp"]
     cli.main(["train", "--subnet", "keypoint", *common, "--batch-size", "2",
@@ -94,31 +95,31 @@ def test_cli_end_to_end_on_cpu(tree, tmp_path, monkeypatch):
     assert np.isfinite(loss)
 
     # the briefly trained heads find nothing: raise their output biases
-    eval_ckpt = chip_smoke.raise_output_biases(ckpt, str(tmp_path / "eval"))
+    eval_ckpt = chip_smoke.raise_output_biases(ckpt, str(model_files / "eval"))
     ev = ["--coco-root", root, "--backbone", "resnet50", "--ckpt", eval_ckpt,
           "--inp-size", "64", "--max-peaks", "8", "--max-people", "8",
           "--no-escalate"]
-    metrics_file = str(tmp_path / "metrics.json")
+    metrics_file = str(model_files / "metrics.json")
     metrics = cli.main(["coco-eval", *ev, "--metrics-file", metrics_file,
-                        "--result-file", str(tmp_path / "all.json")])
+                        "--result-file", str(model_files / "all.json")])
     with open(metrics_file) as f:
         assert json.load(f) == metrics
     assert len(metrics) == 10
-    shards = [str(tmp_path / f"shard{i}.json") for i in range(2)]
+    shards = [str(model_files / f"shard{i}.json") for i in range(2)]
     for i, path in enumerate(shards):
         assert cli.main(["coco-eval", *ev, "--eval-shard", f"{i}:2",
                          "--result-file", path]) == {}
-    merged = str(tmp_path / "merged.json")
+    merged = str(model_files / "merged.json")
     assert cli.main(["merge-results", *shards, "--coco-root", root,
                      "--out", merged]) == metrics
     rows = []
-    for path in (merged, tmp_path / "all.json"):
+    for path in (merged, model_files / "all.json"):
         with open(path) as f:
             rows.append(sorted(json.load(f), key=lambda r: (
                 r["image_id"], -r["score"], r["keypoints"])))
     assert rows[0] == rows[1] and len(rows[0]) > 0
 
-    out = tmp_path / "test_out"
+    out = model_files / "test_out"
     people = cli.main(["test", *ev[:8], "--testdata",
                        os.path.join(root, "images", "val2017"),
                        "--testresult", str(out)])

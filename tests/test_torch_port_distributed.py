@@ -15,7 +15,6 @@ The training steps in several processes are in tests/test_torch_port_dryrun.py.
 
 import dataclasses
 import os
-import shutil
 import subprocess
 import sys
 import time
@@ -43,6 +42,7 @@ from multiposenet_tpu_torch.parallel.distributed import RankFailure, spawn_ranks
 from torch_port_helpers import (
     HEAD_STD,
     GTForward,
+    model_files,  # noqa: F401 (a fixture)
     perturbed_init,
     port_config,
     port_model,
@@ -282,31 +282,24 @@ def test_batch_predictor_on_a_mesh_equals_unsharded(serving):
 # ---------------------------------------------------------------- CLI
 
 
-@pytest.fixture
-def files(tmp_path):
-    """``tmp_path``, removed after the test: checkpoints are large."""
-    yield tmp_path
-    shutil.rmtree(tmp_path, ignore_errors=True)
-
-
-def test_cli_train_in_two_processes(files):
+def test_cli_train_in_two_processes(model_files):
     """``cli train`` with the cluster flags in 2 processes (global batch 2,
     one sample each), each with its own --save-dir, as hosts without a
     shared filesystem: process 0 writes the checkpoint and the metrics,
     process 1 writes nothing."""
-    root = str(files / "coco")
+    root = str(model_files / "coco")
     os.makedirs(root)
     chip_smoke.write_synthetic_coco(root, 4, 3, sizes=((96, 128), (128, 96)),
                                     tall=(40.0, 80.0))
     env = dict(os.environ, MPN_PLATFORM="cpu", OMP_NUM_THREADS="2")
     env.pop("MPN_COORDINATOR_ADDRESS", None)
     env.pop("MPN_DISTRIBUTED", None)
-    init = "file://" + str(files / "rendezvous")
+    init = "file://" + str(model_files / "rendezvous")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "multiposenet_tpu_torch.cli", "train",
          "--subnet", "keypoint", "--coco-root", root, "--backbone", "resnet50",
          "--inp-size", "64", "--batch-size", "2", "--max-epoch", "1",
-         "--num-workers", "2", "--save-dir", str(files / f"save{r}"),
+         "--num-workers", "2", "--save-dir", str(model_files / f"save{r}"),
          "--coordinator", init, "--num-processes", "2", "--process-id", str(r)],
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -323,8 +316,8 @@ def test_cli_train_in_two_processes(files):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
     assert "process 1/2 on cpu, backend gloo" in outs[1]
-    exp = files / "save0" / "multipose101"
+    exp = model_files / "save0" / "multipose101"
     assert (exp / "ckpt_1" / "state.pt").is_file()
     assert (exp / "metrics.jsonl").is_file()
-    other = files / "save1" / "multipose101"
+    other = model_files / "save1" / "multipose101"
     assert not other.exists() or not any(other.iterdir())

@@ -9,12 +9,9 @@
   JAX's step on a 2-device mesh of virtual CPU devices.
 """
 
-import shutil
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from multiposenet_tpu.config import Config as JConfig
@@ -33,15 +30,9 @@ from multiposenet_tpu_torch.engine.train_steps import is_trainable
 from multiposenet_tpu_torch.parallel.distributed import spawn_ranks
 from multiposenet_tpu_torch.parallel.dryrun import dryrun_multichip
 from multiposenet_tpu_torch.weights import state_dict_from_flax, torch_key
+from torch_port_helpers import model_files  # noqa: F401 (a fixture)
 
 TIMEOUT = 300.0    # seconds a process group may take before it is ended
-
-
-@pytest.fixture
-def files(tmp_path):
-    """``tmp_path``, removed after the test: state dicts are large."""
-    yield tmp_path
-    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def ranks(fn, n=2, *args):
@@ -97,7 +88,7 @@ def _jax_preprocess_f64(img):
             / IMAGENET_STD.astype(np.float64))
 
 
-def test_two_process_keypoint_step_equals_jax_mesh_step(files, monkeypatch):
+def test_two_process_keypoint_step_equals_jax_mesh_step(model_files, monkeypatch):
     """The keypoint step in 2 processes (BatchNorm on the global batch's
     statistics through the differentiable all-reduce, DDP's averaged
     gradients) against JAX's step on a 2-device mesh of virtual CPU devices,
@@ -147,10 +138,10 @@ def test_two_process_keypoint_step_equals_jax_mesh_step(files, monkeypatch):
     cfg = Config(model=ModelConfig(compute_dtype=torch.float64, **SMALL_PRN),
                  data=DataConfig(inp_size=SIZE), train=TrainConfig(optimizer="sgd"))
     start = state_dict_from_flax(v)
-    torch.save(start, files / "start.pt")
-    out = files / "after.pt"
+    torch.save(start, model_files / "start.pt")
+    out = model_files / "after.pt"
     (logs0, stats0), (logs1, stats1) = ranks(
-        workers.keypoint_step, 2, str(files / "start.pt"), cfg, batch, lr,
+        workers.keypoint_step, 2, str(model_files / "start.pt"), cfg, batch, lr,
         str(out))
     after = torch.load(out)
 

@@ -30,6 +30,7 @@ from multiposenet_tpu_torch.models.posenet import PoseNet
 from multiposenet_tpu_torch.ops import nms, peaks
 from test_torch_port_cli import _args as cli_args
 from test_torch_port_ops import _nms_case, _suppress_case
+from torch_port_helpers import model_files, module_model_files  # noqa: F401 (fixtures)
 
 SIZE = 64
 BATCH = 2
@@ -114,10 +115,10 @@ def _images(seed: int) -> torch.Tensor:
 
 
 @pytest.fixture(scope="module")
-def exported(tmp_path_factory):
+def exported(module_model_files):
     """The folded model of a checkpoint exported through the CLI, after the
     live pipeline ran once with its device-tensor caches cleared again."""
-    root = tmp_path_factory.mktemp("export")
+    root = module_model_files
     ckpt = _checkpoint(str(root / "ckpt"))
     out = str(root / "pose.pt2")
     with pytest.MonkeyPatch.context() as mp:
@@ -184,12 +185,12 @@ def test_from_exported_predictor_equals_live(exported):
     assert got == want
 
 
-def test_export_program_needs_a_checkpoint(monkeypatch, tmp_path):
+def test_export_program_needs_a_checkpoint(monkeypatch, model_files):
     monkeypatch.setenv("MPN_PLATFORM", "cpu")
     with pytest.raises(SystemExit, match="requires --ckpt"):
-        cli.main(["export-program", str(tmp_path / "x.pt2"),
+        cli.main(["export-program", str(model_files / "x.pt2"),
                   "--backbone", "resnet50"])
-    assert not (tmp_path / "x.pt2").exists()
+    assert not (model_files / "x.pt2").exists()
 
 
 def test_test_and_coco_eval_with_fold_bn(exported, tmp_path, monkeypatch):

@@ -8,7 +8,6 @@ import copy
 import importlib.util
 import json
 import os
-import shutil
 import sys
 
 import h5py
@@ -32,6 +31,7 @@ from multiposenet_tpu_torch.weights import (
     write_reference_h5,
 )
 from torch_port_helpers import HEAD_STD, perturbed_init, port_config
+from torch_port_helpers import model_files  # noqa: F401 (a fixture)
 
 SIZE = 64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -150,14 +150,6 @@ def small_tree():
     return jax.tree_util.tree_map(np.array, jax.device_get(v))
 
 
-@pytest.fixture
-def files(tmp_path):
-    """``tmp_path``, removed after the test: checkpoints and h5 files of a
-    whole PoseNet are large."""
-    yield tmp_path
-    shutil.rmtree(tmp_path, ignore_errors=True)
-
-
 def _jax_tool():
     spec = importlib.util.spec_from_file_location(
         "export_torch_ckpt", os.path.join(REPO, "tools", "export_torch_ckpt.py"))
@@ -171,15 +163,15 @@ def _h5(path):
         return {k: np.asarray(d[()]) for k, d in f.items()}, int(f.attrs["epoch"])
 
 
-def test_export_torch_round_trips_and_matches_jax(small_tree, files):
+def test_export_torch_round_trips_and_matches_jax(small_tree, model_files):
     """A checkpoint of the port, written by ``cli export-torch``: the h5
     reads back through ``read_reference_h5`` (and ``cli import-torch`` into
     a checkpoint) bit for bit, and agrees key by key, in value, dtype and
     shape, with the JAX tool's ``export_state_dict`` of the same weights
     and with the file its ``write_reference_h5`` writes."""
     sd = state_dict_from_flax(small_tree)
-    ckpt = ckpt_lib.save_model_checkpoint(str(files / "ckpts"), sd, epoch=3)
-    out = str(files / "port.h5")
+    ckpt = ckpt_lib.save_model_checkpoint(str(model_files / "ckpts"), sd, epoch=3)
+    out = str(model_files / "port.h5")
     cli.main(["export-torch", ckpt, out, "--backbone", "resnet50", "--epoch", "7"])
 
     back, epoch = read_reference_h5(out)
@@ -195,14 +187,14 @@ def test_export_torch_round_trips_and_matches_jax(small_tree, files):
         a = np.asarray(a)
         assert got[k].dtype == a.dtype and got[k].shape == a.shape, k
         assert np.array_equal(got[k], a), k
-    ref = str(files / "jax.h5")
+    ref = str(model_files / "jax.h5")
     tool.write_reference_h5(want, ref, epoch=7)
     ref_sets, ref_epoch = _h5(ref)
     assert ref_epoch == 7 and ref_sets.keys() == got.keys()
     assert all(np.array_equal(ref_sets[k], got[k]) and ref_sets[k].dtype == got[k].dtype
                for k in got)
 
-    path = cli.main(["import-torch", out, str(files / "imported"),
+    path = cli.main(["import-torch", out, str(model_files / "imported"),
                      "--backbone", "resnet50"])
     assert os.path.basename(path) == "ckpt_7"
     loaded, stats = ckpt_lib.restore_model_state_partial(path, sd)
@@ -210,8 +202,8 @@ def test_export_torch_round_trips_and_matches_jax(small_tree, files):
     assert all(torch.equal(loaded[k], sd[k]) for k in sd)
 
 
-def test_reference_h5_reader_strips_data_parallel_prefixes(tmp_path):
-    path = str(tmp_path / "dp.h5")
+def test_reference_h5_reader_strips_data_parallel_prefixes(model_files):
+    path = str(model_files / "dp.h5")
     with h5py.File(path, "w") as f:
         f.create_dataset("module.fpn.conv1.weight", data=np.ones((2, 3), np.float32))
         f.create_dataset("prn.dens1.bias", data=np.zeros(4, np.float32))
@@ -221,7 +213,7 @@ def test_reference_h5_reader_strips_data_parallel_prefixes(tmp_path):
     assert _h5(path)[0]["x"].dtype == np.float32
 
 
-def test_export_torch_refuses_the_wrong_backbone(small_tree, files):
-    ckpt = ckpt_lib.save_model_checkpoint(str(files), state_dict_from_flax(small_tree))
+def test_export_torch_refuses_the_wrong_backbone(small_tree, model_files):
+    ckpt = ckpt_lib.save_model_checkpoint(str(model_files), state_dict_from_flax(small_tree))
     with pytest.raises(SystemExit, match="6 fpn.layer3 blocks"):
-        cli.main(["export-torch", ckpt, str(files / "x.h5")])
+        cli.main(["export-torch", ckpt, str(model_files / "x.h5")])

@@ -29,7 +29,6 @@ import dataclasses
 import json
 import logging
 import os
-import shutil
 import subprocess
 import sys
 
@@ -53,6 +52,7 @@ from multiposenet_tpu_torch.tools import (
     ap_ablation, check_ap_floor, convert_torchvision_resnet, make_coco_json,
     make_synth_pose_dataset, synth_e2e_gate)
 from multiposenet_tpu_torch.weights import state_dict_from_flax
+from torch_port_helpers import model_files  # noqa: F401 (a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -394,7 +394,7 @@ def torchvision_resnet_state(blocks, seed=0):
     return sd
 
 
-def test_convert_torchvision_resnet_equals_jax(tmp_path):
+def test_convert_torchvision_resnet_equals_jax(model_files):
     sd = torchvision_resnet_state((3, 4, 6, 3))
     got, skipped = convert_torchvision_resnet.convert(sd)
     assert convert_torchvision_resnet.backbone_of(sd) == "resnet50"
@@ -416,9 +416,9 @@ def test_convert_torchvision_resnet_equals_jax(tmp_path):
              and not k.endswith("num_batches_tracked")}
     assert set(got) == trunk
 
-    pth = tmp_path / "resnet50.pth"
+    pth = model_files / "resnet50.pth"
     torch.save(sd, pth)
-    path = convert_torchvision_resnet.main([str(pth), str(tmp_path / "init")])
+    path = convert_torchvision_resnet.main([str(pth), str(model_files / "init")])
     template = {"fpn." + k: v for k, v in ResNetFPN((3, 4, 6, 3)).state_dict().items()}
     loaded, stats = ckpt_lib.restore_model_state_partial(path, template)
     assert stats["loaded"] == len(got) and stats["shape_skipped"] == 0
@@ -567,13 +567,13 @@ def test_loader_worker_processes_and_batch_seeds():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-3000:]
 
 
-def test_best_copies_are_links_and_replace_each_other(tmp_path):
+def test_best_copies_are_links_and_replace_each_other(model_files):
     """copy_best hard-links the checkpoint's files, and a stage keeps only
     its newest best copy."""
     from multiposenet_tpu_torch.config import keypoint_train_config
     from multiposenet_tpu_torch.engine.trainer import Trainer
 
-    ckpt = tmp_path / "ckpt_3"
+    ckpt = model_files / "ckpt_3"
     ckpt.mkdir()
     (ckpt / ckpt_lib.STATE_FILE).write_bytes(b"state")
     best = ckpt_lib.copy_best(str(ckpt), 0.5)
@@ -584,13 +584,13 @@ def test_best_copies_are_links_and_replace_each_other(tmp_path):
     cfg = dataclasses.replace(   # a narrow PRN keeps the checkpoints small
         cfg, model=dataclasses.replace(cfg.model, backbone="resnet50",
                                        prn_node_count=64),
-        train=dataclasses.replace(cfg.train, max_epoch=3, save_dir=str(tmp_path),
+        train=dataclasses.replace(cfg.train, max_epoch=3, save_dir=str(model_files),
                                   exp_name="kp", print_freq=10 ** 6))
     tr = Trainer(cfg, train_data=[], val_data=[], device="cpu")
     losses = iter([0.3, 0.2, 0.1])
     tr.validate = lambda n: next(losses)
     tr.train()
-    names = sorted(os.listdir(tmp_path / "kp"))
+    names = sorted(os.listdir(model_files / "kp"))
     assert [n for n in names if n.endswith(".best")] == ["ckpt_3_0.10000.best"]
     assert {"ckpt_1", "ckpt_2", "ckpt_3"} <= set(names)
 
@@ -603,15 +603,13 @@ TOY = ["--device", "cpu", "--n-train", "6", "--n-val", "2", "--width", "128",
        "--num-workers", "2", "--floor", "0.0", "--no-ablation"]
 
 
-def test_synth_gate_runs_every_stage_on_the_cpu(tmp_path, capsys):
+def test_synth_gate_runs_every_stage_on_the_cpu(model_files, capsys, monkeypatch):
     """The toy model detects nobody after one epoch, so its metrics file is
     ``{}`` and the floor check fails even at 0.0 (a metrics file without an
-    AP never passes); every stage before it ran and chose its best."""
-    save = tmp_path / "models"
-    try:
-        _toy_gate(tmp_path, save, capsys)
-    finally:   # the whole-model checkpoints are 0.5-1 GB each
-        shutil.rmtree(tmp_path, ignore_errors=True)
+    AP never passes); every stage before it ran and chose its best.  Its
+    CLI processes run on two threads each, beside the other test workers."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    _toy_gate(model_files, model_files / "models", capsys)
 
 
 def _toy_gate(tmp_path, save, capsys):

@@ -24,6 +24,7 @@ from multiposenet_tpu_torch.data.loader import Loader, device_prefetch
 from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
 from multiposenet_tpu_torch.engine.train_steps import TrainState, param_group
 from multiposenet_tpu_torch.engine.trainer import ReduceLROnPlateau, Trainer
+from torch_port_helpers import model_files  # noqa: F401 (a fixture)
 
 SIZE = 64
 
@@ -152,9 +153,9 @@ def tiny_state(seed=0):
     return TrainState(model=model, optimizer=opt, subnet="keypoint", step=3)
 
 
-def test_checkpoint_names_order_and_pruning(tmp_path):
+def test_checkpoint_names_order_and_pruning(model_files):
     state = tiny_state()
-    d = str(tmp_path)
+    d = str(model_files)
     for epoch, step in [(1, 5), (1, None), (2, 7), (2, 12), (0, 1)]:
         path = ckpt_lib.save_checkpoint(d, state, epoch, step=step)
         assert os.path.basename(path) == (f"ckpt_{epoch}" if step is None
@@ -168,9 +169,9 @@ def test_checkpoint_names_order_and_pruning(tmp_path):
     assert not any(n.endswith(".tmp") for n in os.listdir(d))
 
 
-def test_checkpoint_restore_round_trip_and_copy_best(tmp_path):
+def test_checkpoint_restore_round_trip_and_copy_best(model_files):
     a, b = tiny_state(0), tiny_state(1)
-    path = ckpt_lib.save_checkpoint(str(tmp_path), a, 4)
+    path = ckpt_lib.save_checkpoint(str(model_files), a, 4)
     ckpt_lib.restore_checkpoint(path, b)
     assert b.step == 3
     for (k, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
@@ -182,12 +183,12 @@ def test_checkpoint_restore_round_trip_and_copy_best(tmp_path):
     best = ckpt_lib.copy_best(path, 0.123456)
     assert best == path + "_0.12346.best"
     assert ckpt_lib.load_checkpoint(best)["epoch"] == 4
-    assert ckpt_lib.list_checkpoints(str(tmp_path)) == [(4, -1)]
+    assert ckpt_lib.list_checkpoints(str(model_files)) == [(4, -1)]
 
 
-def test_restore_model_state_partial_skips_shapes_and_keeps_missing(tmp_path):
+def test_restore_model_state_partial_skips_shapes_and_keeps_missing(model_files):
     src = tiny_state(0)
-    path = ckpt_lib.save_checkpoint(str(tmp_path), src, 1)
+    path = ckpt_lib.save_checkpoint(str(model_files), src, 1)
     torch.manual_seed(5)
     # conv with 5 outputs: its weight and bias shapes differ; BN of 4 loads
     # (weight, bias, mean, var); an extra Linear is missing from the ckpt
@@ -203,19 +204,19 @@ def test_restore_model_state_partial_skips_shapes_and_keeps_missing(tmp_path):
         assert torch.equal(dst.state_dict()[k], template[k]), k
 
 
-def test_async_saver_snapshots_orders_and_reraises(tmp_path):
+def test_async_saver_snapshots_orders_and_reraises(model_files):
     state = tiny_state()
     saver = ckpt_lib.AsyncSaver()
     before = state.model[0].weight.detach().clone()
-    f1 = saver.save(str(tmp_path), state, 1, step=1)
+    f1 = saver.save(str(model_files), state, 1, step=1)
     with torch.no_grad():
         state.model[0].weight.add_(1.0)       # a later step, in place
-    f2 = saver.save(str(tmp_path), state, 1, step=2)
+    f2 = saver.save(str(model_files), state, 1, step=2)
     assert saver.wait() == f2.result()
     assert torch.equal(ckpt_lib.load_checkpoint(f1.result())["model"]["0.weight"], before)
     assert torch.equal(ckpt_lib.load_checkpoint(f2.result())["model"]["0.weight"],
                        before + 1.0)
-    blocker = tmp_path / "file"
+    blocker = model_files / "file"
     blocker.write_text("not a directory")
     saver.save(str(blocker), state, 2)        # fails in the background
     with pytest.raises(OSError):
@@ -268,16 +269,16 @@ def stage_cfg(tmp, subnet, exp, **train):
                   data=DataConfig(inp_size=SIZE), train=TrainConfig(**kw))
 
 
-def test_auto_resume_roundtrip(tmp_path):
+def test_auto_resume_roundtrip(model_files):
     """Train an epoch (end-of-epoch validation, best copy); a fresh Trainer
     picks up the newest checkpoint: epoch, step, weights, BN statistics and
     optimizer state."""
-    cfg = stage_cfg(tmp_path, "keypoint", "t", val_nbatch_end_epoch=1)
+    cfg = stage_cfg(model_files, "keypoint", "t", val_nbatch_end_epoch=1)
     t = Trainer(cfg, train_data=keypoint_batches(2), val_data=keypoint_batches(1, 9),
                 device="cpu")
     t.train()
     assert t.last_epoch == 1 and t.state.step == 2
-    save_dir = os.path.join(str(tmp_path), "t")
+    save_dir = os.path.join(str(model_files), "t")
     assert any(n.endswith(".best") for n in os.listdir(save_dir))
     assert os.path.exists(os.path.join(save_dir, "metrics.jsonl"))
     t2 = Trainer(cfg, train_data=keypoint_batches(2), device="cpu")
@@ -290,10 +291,10 @@ def test_auto_resume_roundtrip(tmp_path):
     assert t2.state.step == 2
 
 
-def test_sigterm_checkpoints_and_exits(tmp_path):
+def test_sigterm_checkpoints_and_exits(model_files):
     """SIGTERM during the epoch: the current step finishes, a step
     checkpoint is written, and the trainer exits with SystemExit(0)."""
-    cfg = stage_cfg(tmp_path, "prn", "p")
+    cfg = stage_cfg(model_files, "prn", "p")
     t = Trainer(cfg, train_data=None, device="cpu")
     t.install_signal_handlers()
 
@@ -310,7 +311,7 @@ def test_sigterm_checkpoints_and_exits(tmp_path):
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         signal.signal(signal.SIGINT, signal.default_int_handler)
     assert exc.value.code == 0
-    save_dir = os.path.join(str(tmp_path), "p")
+    save_dir = os.path.join(str(model_files), "p")
     ckpts = ckpt_lib.list_checkpoints(save_dir)
     assert len(ckpts) == 1 and ckpts[0][1] == t.global_step < 6
     # a resumed run re-runs the unfinished epoch from that step
@@ -318,7 +319,7 @@ def test_sigterm_checkpoints_and_exits(tmp_path):
     assert (t2.last_epoch, t2.global_step) == (0, t.global_step)
 
 
-def test_three_stage_chain_partial_init_and_freeze(tmp_path):
+def test_three_stage_chain_partial_init_and_freeze(model_files):
     """The reference's staged recipe: each stage starts from the previous
     stage's checkpoint by partial init (weights and BN statistics), trains
     only its own groups, and carries everything else bit-unchanged."""
@@ -331,7 +332,7 @@ def test_three_stage_chain_partial_init_and_freeze(tmp_path):
                                    "num_batches_tracked"))
                 and not torch.equal(a[k], b[k])}
 
-    t1 = Trainer(stage_cfg(tmp_path, "keypoint", "s1"),
+    t1 = Trainer(stage_cfg(model_files, "keypoint", "s1"),
                  train_data=keypoint_batches(2), device="cpu")
     s0 = snapshot(t1.model)
     t1.train()
@@ -339,9 +340,9 @@ def test_three_stage_chain_partial_init_and_freeze(tmp_path):
     assert changed_groups(s0, s1) == {"fpn_resnet", "fpn_keypoint", "keypoint"}
     bn = [k for k in s1 if k.endswith("running_mean")]
     assert any(not torch.equal(s0[k], s1[k]) for k in bn)   # BN trained
-    ck1 = ckpt_lib.latest_checkpoint(os.path.join(str(tmp_path), "s1"))
+    ck1 = ckpt_lib.latest_checkpoint(os.path.join(str(model_files), "s1"))
 
-    t2 = Trainer(stage_cfg(tmp_path, "detection", "s2"),
+    t2 = Trainer(stage_cfg(model_files, "detection", "s2"),
                  train_data=detection_batches(2), init_ckpt_params=ck1, device="cpu")
     for k, v in snapshot(t2.model).items():    # weights AND BN statistics
         assert torch.equal(v, s1[k]), k
@@ -351,8 +352,8 @@ def test_three_stage_chain_partial_init_and_freeze(tmp_path):
     for k in bn:                               # BN frozen in this stage
         assert torch.equal(s2[k], s1[k]), k
 
-    ck2 = ckpt_lib.latest_checkpoint(os.path.join(str(tmp_path), "s2"))
-    t3 = Trainer(stage_cfg(tmp_path, "prn", "s3"),
+    ck2 = ckpt_lib.latest_checkpoint(os.path.join(str(model_files), "s2"))
+    t3 = Trainer(stage_cfg(model_files, "prn", "s3"),
                  train_data=prn_batches(2), init_ckpt_params=ck2, device="cpu")
     t3.train()
     s3 = snapshot(t3.model)

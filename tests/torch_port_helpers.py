@@ -3,10 +3,12 @@ model whose weights the port loads, and matching configurations of both
 packages at a small size."""
 
 import dataclasses
+import shutil
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from multiposenet_tpu.config import Config as JConfig
@@ -26,6 +28,26 @@ HEAD_STD = 2e4
 
 LOWERED = dict(score_thresh=0.05, test_score_thresh=0.1, max_detections=32,
                thre1=1e-6, max_peaks=8, max_people=8)
+
+
+@pytest.fixture
+def model_files(tmp_path):
+    """``tmp_path``, removed at teardown, also when the test fails: the
+    checkpoints, state dicts, exported programs and h5 files of a whole
+    PoseNet are 0.1-1 GB each, and pytest keeps the temporary directories
+    of its last three sessions.  A test that writes model state takes this
+    fixture (imported into its module) in place of ``tmp_path``."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def module_model_files(tmp_path_factory):
+    """``model_files`` for a module-scoped fixture: a new temporary
+    directory, removed after the module's last test."""
+    path = tmp_path_factory.mktemp("model_files")
+    yield path
+    shutil.rmtree(path, ignore_errors=True)
 
 
 def perturbed_init(backbone: str, size: int, seed: int = 0,
