@@ -1,0 +1,185 @@
+"""The frozen reference against the port at tiny sizes on the CPU, both in
+float32 from one seeded state dict; and the reference imports nothing of
+the program."""
+
+import copy
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mpn_bench import checks, harness, traffic, weights
+from mpn_bench.drivers import detection_batches, frame_stream
+from mpn_bench.reference import model as ref_model
+from mpn_bench.reference import post
+from mpn_bench.tests import tiny
+
+
+@pytest.fixture(scope="module")
+def serve_pair():
+    _, cfg, _ = tiny.cell("serve")
+    cfg = copy.deepcopy(cfg)
+    cfg["serve"]["compute_dtype"] = "float32"
+    from multiposenet_tpu_torch.models.posenet import build_posenet
+
+    sd = weights.make_state_dict(cfg, 17, "cpu", "serve")
+    port = build_posenet(frame_stream.port_config(cfg).model, torch.device("cpu"), sd)
+    ref = ref_model.build(cfg)
+    ref.load_state_dict(sd)
+    ref.eval()
+    img = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3),
+                                                            dtype=np.uint8))
+    with torch.no_grad():
+        heat, cls, reg = port.full_forward(
+            __import__("multiposenet_tpu_torch.engine.inference", fromlist=["x"])
+            .preprocess_on_device(img))
+        r = ref.full_forward(ref_model.preprocess(img))
+    return cfg, port, ref, (heat, cls, reg), r
+
+
+def test_forward_matches_the_port(serve_pair):
+    _, _, _, p, r = serve_pair
+    for a, b in zip(p, r):
+        assert a.shape == b.shape
+        assert checks.rel_rms(a, b) < 1e-5
+
+
+def test_anchors_match_the_port():
+    from multiposenet_tpu_torch.ops.anchors import anchors_for_shape
+
+    for hw in [(64, 64), (480, 480), (608, 608), (37, 90)]:
+        assert np.array_equal(post.anchors(hw), anchors_for_shape(hw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_detections_match_the_port_exactly(serve_pair, dtype):
+    from multiposenet_tpu_torch.ops.boxes import clip_boxes, decode_boxes
+    from multiposenet_tpu_torch.ops.nms import batched_topk_nms
+
+    _, _, _, (heat, cls, reg), _ = serve_pair
+    g = torch.Generator().manual_seed(5)
+    cls = torch.rand(cls.shape, generator=g).to(dtype)
+    reg = torch.randn(reg.shape, generator=g)
+    anc = torch.from_numpy(post.anchors((64, 64)))
+    boxes = clip_boxes(decode_boxes(anc[None], reg.float()), 64, 64)
+    want = batched_topk_nms(boxes, cls.amax(2), 0.5, 100, 0.05)
+    got = post.detections(cls, reg, anc, 64, 64)
+    assert got.keep.sum() > 10
+    assert torch.equal(got.keep, want.keep)
+    assert torch.equal(got.indices, want.indices.long())
+    assert torch.equal(got.scores, want.scores)
+    assert torch.equal(got.boxes, want.boxes)
+
+
+def test_peaks_match_the_port(serve_pair):
+    from multiposenet_tpu_torch.ops.peaks import find_peaks_refined_batched
+
+    heat = torch.randn(2, 40, 30, 18, generator=torch.Generator().manual_seed(3)) * 0.2
+    want = find_peaks_refined_batched(heat, 0.1, 32, 4, 2, True)
+    got = post.peaks(heat, 0.1, 32, 4, 2)
+    assert want.valid.sum() > 100
+    assert torch.equal(got.valid, want.valid)
+    off = want.coords.long() - got.win_xy * 4
+    assert ((off >= 0) & (off < 20)).all()
+    flat = got.up.flatten(-2)
+    at = torch.gather(flat, -1, (off[..., 1] * 20 + off[..., 0])[..., None])[..., 0]
+    v = want.valid
+    assert torch.allclose(at[v], flat.amax(-1)[v], rtol=1e-6)
+    assert torch.allclose(want.scores[v].double(), flat.amax(-1)[v], rtol=1e-6)
+
+
+def _prn_case(serve_pair):
+    cfg, port, ref, _, _ = serve_pair
+    g = torch.Generator().manual_seed(9)
+    n, j, p, b = 2, 17, 8, 5
+    pxy = torch.randint(0, 64, (n, j, p, 2), generator=g).float()
+    pvalid = torch.rand(n, j, p, generator=g) < 0.7
+    x1y1 = torch.rand(n, b, 2, generator=g) * 40
+    wh = 5 + torch.rand(n, b, 2, generator=g) * 30
+    xywh = torch.cat([x1y1, wh], -1)
+    bvalid = torch.tensor([[1, 1, 1, 0, 0], [1, 1, 1, 1, 0]], dtype=torch.bool)
+    xywh = torch.where(bvalid[..., None], xywh, 0.0)
+    return cfg, port, ref, pxy, pvalid, xywh, bvalid
+
+
+def test_prn_stage_matches_the_port(serve_pair):
+    from multiposenet_tpu_torch.engine.inference import PRNPipeline
+
+    cfg, port, ref, pxy, pvalid, xywh, bvalid = _prn_case(serve_pair)
+    pc = frame_stream.port_config(cfg)
+    want = PRNPipeline(port, pc)(pxy, torch.where(pvalid, 1.0, -1.0), pvalid, xywh, bvalid)
+    with torch.no_grad():
+        got = post.prn_stage(lambda gr: ref.prn.run(gr), pxy, pvalid, xywh, bvalid,
+                             ref.prn.height, ref.prn.width)
+    assert got.inside.sum() > 20
+    assert torch.equal(got.inside, want[1])
+    assert torch.equal(got.x0, want[3]) and torch.equal(got.y0, want[4])
+    assert checks.rel_rms(want[2], got.prn_out) < 1e-5
+    assert checks.rel_rms(want[0], got.table, got.inside) < 1e-5
+
+
+def test_grouping_matches_the_port(serve_pair):
+    from multiposenet_tpu_torch.engine.inference import PRNPipeline, PoseAssignments
+    from multiposenet_tpu_torch.engine.inference import format_pose_batch
+    from multiposenet_tpu_torch.ops.grouping import assign_peaks
+
+    cfg, port, ref, pxy, pvalid, xywh, bvalid = _prn_case(serve_pair)
+    pc = frame_stream.port_config(cfg)
+    table, inside, prn_out, x0, y0 = PRNPipeline(port, pc)(
+        pxy, torch.where(pvalid, 1.0, -1.0), pvalid, xywh, bvalid)
+    a = assign_peaks(table, inside, x0, y0, prn_out, xywh)
+    served = format_pose_batch(PoseAssignments(
+        a.chosen, a.active_any, a.active, a.fallback_xy, pxy, pvalid, xywh, bvalid))
+    people = 0
+    for i in range(2):
+        nb = int(bvalid[i].sum())
+        rows = post.group(*(t[i, :nb].numpy() for t in (table, inside, x0, y0, prn_out)),
+                          pxy[i].numpy(), xywh[i, :nb].numpy())
+        people += len(rows)
+        assert not checks._rows_differ(served[i], rows)
+    assert people == 7
+
+
+def test_detection_step_matches_the_port():
+    _, cfg, spec = tiny.cell("train")
+    from multiposenet_tpu_torch.engine import train_steps
+    from multiposenet_tpu_torch.models.posenet import build_trainable_posenet
+
+    pcfg = detection_batches.port_config(cfg, spec)
+    sd = weights.make_state_dict(cfg, 23, "cpu", "train_detection")
+    dev = torch.device("cpu")
+    state = train_steps.create_train_state(
+        pcfg, "detection", model=build_trainable_posenet(pcfg.model, dev, sd))
+    step, _ = train_steps.make_detection_steps(pcfg, dev)
+    batches = traffic.detection_pool(spec, 23, 64, "cpu")[:3]
+    named = detection_batches.trainable(state)
+    start = {n: p.detach().clone() for n, p in named}
+    lr = cfg["train_detection"]["init_lr"]
+    losses = [float(step(state, b, lr)[1]["loss"]) for b in batches]
+    ref = checks.reference_steps(cfg, sd, batches, dev, lr)
+    assert sorted(ref["delta"]) == sorted(n for n, _ in named)
+    # Adam moves a weight by about lr whatever its gradient's size, so
+    # gradients at round-off move weights apart: later losses drift
+    assert losses[0] == pytest.approx(ref["losses"][0], rel=1e-6)
+    assert np.allclose(losses, ref["losses"], rtol=1e-4)
+    delta = {n: p.detach() - start[n] for n, p in named}
+    # worst leaf measured 1.5e-3 (a regression bias); the fault of half a
+    # batch reads 7.8e-2 here
+    assert checks.leaf_gap(delta, ref["delta"], sorted(delta)) < 5e-3
+
+
+def test_reference_imports_nothing_of_the_program():
+    code = ("import sys; import mpn_bench.reference.model, mpn_bench.reference.post, "
+            "mpn_bench.reference.train, mpn_bench.reference.flops; "
+            "bad = sorted({m.split('.')[0] for m in sys.modules} & "
+            "{'multiposenet_tpu_torch', 'multiposenet_tpu', 'jax', 'jaxlib', 'flax'}); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=harness.ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    for path in (harness.BENCH_DIR / "reference").glob("*.py"):
+        text = path.read_text()
+        assert "multiposenet_tpu" not in text.replace("MultiPoseNet", "")
+        assert "import jax" not in text
