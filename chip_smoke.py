@@ -2189,6 +2189,7 @@ def cli_phase(card: str, device: str = "cuda", backbone: str = "resnet101",
     from multiposenet_tpu_torch.engine import trainer as trainer_mod
     from multiposenet_tpu_torch.models.posenet import PoseNet
     from multiposenet_tpu_torch.ops import cuda_nms
+    from multiposenet_tpu_torch.utils import trace
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="mpn_cli_smoke_")
@@ -2208,9 +2209,14 @@ def cli_phase(card: str, device: str = "cuda", backbone: str = "resnet101",
             rec = records.setdefault(self.subnet, {"losses": [], "waits": [],
                                                    "events": []})
             step = self.train_step
+            waited = [trace.totals().get("data.wait", (0, 0.0))[1]]
 
             def timed(state, batch, *args):
-                rec["waits"].append(self.data_timer.duration)
+                # the data wait before this step: the tracer's data.wait
+                # seconds since the step before
+                now = trace.totals().get("data.wait", (0, 0.0))[1]
+                rec["waits"].append(now - waited[0])
+                waited[0] = now
                 ev = None
                 if self.device.type == "cuda":
                     ev = (torch.cuda.Event(enable_timing=True),

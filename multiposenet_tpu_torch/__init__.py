@@ -19,7 +19,7 @@ a counterpart under the same path:
   engine/train_steps.py, trainer.py, checkpoint.py   training
   parallel/            several processes (torch.distributed) and the
                        devices of one process (Mesh, sharded serving)
-  utils/               meters, timer, logger, metrics log, profiler window
+  utils/               meters, tracer (spans), logger, metrics log
   tools/               the synthetic dataset, the COCO index builder, the
                        ImageNet init, the synthetic end-to-end AP gate
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from multiposenet_tpu_torch.config import resolve_device
+from multiposenet_tpu_torch.utils import trace
 
 
 class _WorkerError:
@@ -277,9 +278,10 @@ def device_prefetch(iterator: Iterable, device=None, depth: int = 2
     stream (``record_stream``), so its memory is not reused before the
     consumer's work on it has run.
 
-    An exception in the source iterator is raised in the consumer; a
-    consumer that stops early stops the thread (its puts time out and check
-    the stop flag).
+    The consumer's wait for each batch is the span ``data.wait``
+    (utils/trace.py).  An exception in the source iterator is raised in the
+    consumer; a consumer that stops early stops the thread (its puts time
+    out and check the stop flag).
     """
     device = resolve_device(device)
     on_cuda = device.type == "cuda"
@@ -326,7 +328,8 @@ def device_prefetch(iterator: Iterable, device=None, depth: int = 2
     th.start()
     try:
         while True:
-            exc, item = out_q.get()
+            with trace.span("data.wait"):
+                exc, item = out_q.get()
             if exc is not None:
                 raise exc
             if item is _END:

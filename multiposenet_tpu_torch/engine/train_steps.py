@@ -36,10 +36,20 @@ the PRN dropout masks are drawn for the global batch (models/subnets.dropout).
 The inf-norm clip runs on the averaged gradients.  A train step's logs are
 this process's; a val step's are the mean over the processes, so that every
 process's plateau scheduler decides alike.
+
+Spans (utils/trace.py): each train step runs inside ``train.step``, whose
+id is the state's step number, and its phases inside spans of the same
+names in every stage: ``train.upload``, ``train.targets`` (the keypoint
+heatmaps, the PRN's blurred grids; the detection stage has none),
+``train.forward`` (the preprocessing and the stage's forward),
+``train.loss``, ``train.backward`` and ``train.optimizer``.  A span times
+the host's enqueue of its phase, not the device's work.  Val steps open no
+span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Dict, Mapping, Optional
@@ -62,6 +72,7 @@ from multiposenet_tpu_torch.ops.gaussian import gaussian_blur
 from multiposenet_tpu_torch.ops.heatmap import make_heatmaps
 from multiposenet_tpu_torch.ops.losses import detection_loss, keypoint_loss, prn_loss
 from multiposenet_tpu_torch.parallel import distributed as pdist
+from multiposenet_tpu_torch.utils import trace
 
 # ---------------------------------------------------------------------------
 # stage-wise trainability (reference training/multipose_*_train.py:32-89)
@@ -182,20 +193,33 @@ def _apply_updates(state: TrainState, loss: torch.Tensor, lr: float,
     grad by ``min(max_norm / (max |g| + 1e-6), 1)``, the JAX clip's
     coefficient (reference trainer.py:255-256)."""
     opt = state.optimizer
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    if max_grad_norm:
-        torch.nn.utils.clip_grad_norm_(state.trainable_parameters(),
-                                       max_grad_norm, norm_type=math.inf)
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
+    with trace.span("train.backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+    with trace.span("train.optimizer"):
+        if max_grad_norm:
+            torch.nn.utils.clip_grad_norm_(state.trainable_parameters(),
+                                           max_grad_norm, norm_type=math.inf)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
     state.step += 1
 
 
 def _on_device(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device, non_blocking=True)
             for k, v in batch.items()}
+
+
+def _upload(batch: Mapping, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A train step's batch on ``device``, in the ``train.upload`` span."""
+    with trace.span("train.upload"):
+        return _on_device(batch, device)
+
+
+def _phase(name: str, train: bool):
+    """The span ``name`` in a train step; no span in a val step."""
+    return trace.span(name) if train else contextlib.nullcontext()
 
 
 def _logs(logs: Dict[str, torch.Tensor], loss: torch.Tensor
@@ -283,19 +307,23 @@ def make_keypoint_steps(cfg: Config, device=None):
     sigma = cfg.data.sigma
 
     def loss_from_batch(model, batch, train: bool):
-        imgs = preprocess_on_device(batch["image"])
-        gh, gw = imgs.shape[1] // stride, imgs.shape[2] // stride
-        heat = make_heatmaps(batch["joints"], gh, gw, stride, sigma)
-        mask = batch["mask"].float()
-        hmask = mask[..., None].expand(*mask.shape, num_j)
-        _, saved = model.keypoint_forward(imgs, train=train)
-        return keypoint_loss(saved, heat, hmask, num_j)
+        with _phase("train.targets", train):
+            gh, gw = batch["image"].shape[1] // stride, batch["image"].shape[2] // stride
+            heat = make_heatmaps(batch["joints"], gh, gw, stride, sigma)
+            mask = batch["mask"].float()
+            hmask = mask[..., None].expand(*mask.shape, num_j)
+        with _phase("train.forward", train):
+            imgs = preprocess_on_device(batch["image"])
+            _, saved = model.keypoint_forward(imgs, train=train)
+        with _phase("train.loss", train):
+            return keypoint_loss(saved, heat, hmask, num_j)
 
     train_loss = _TrainLoss(loss_from_batch, device)
 
     def train_step(state: TrainState, batch, lr: float):
-        loss, logs = train_loss(state.model, _on_device(batch, device), True)
-        _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
+        with trace.span("train.step", state.step):
+            loss, logs = train_loss(state.model, _upload(batch, device), True)
+            _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
         return state, _logs(logs, loss)
 
     @torch.no_grad()
@@ -322,21 +350,24 @@ def make_detection_steps(cfg: Config, device=None):
                    pos_iou=det.pos_iou, neg_iou=det.neg_iou,
                    beta=det.smooth_l1_beta)
 
-    def loss_from_batch(model, batch):
-        imgs = preprocess_on_device(batch["image"])
-        cls, reg = model.detection_forward(imgs)
-        return detection_loss(cls, reg, anchors, batch["boxes"].float(), **loss_kw)
+    def loss_from_batch(model, batch, train: bool):
+        with _phase("train.forward", train):
+            imgs = preprocess_on_device(batch["image"])
+            cls, reg = model.detection_forward(imgs)
+        with _phase("train.loss", train):
+            return detection_loss(cls, reg, anchors, batch["boxes"].float(), **loss_kw)
 
     train_loss = _TrainLoss(loss_from_batch, device)
 
     def train_step(state: TrainState, batch, lr: float):
-        loss, logs = train_loss(state.model, _on_device(batch, device))
-        _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
+        with trace.span("train.step", state.step):
+            loss, logs = train_loss(state.model, _upload(batch, device), True)
+            _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
         return state, _logs(logs, loss)
 
     @torch.no_grad()
     def val_step(state: TrainState, batch):
-        loss, logs = loss_from_batch(state.model, _on_device(batch, device))
+        loss, logs = loss_from_batch(state.model, _on_device(batch, device), False)
         return _global_mean(_logs(logs, loss))
 
     return train_step, val_step
@@ -365,20 +396,23 @@ def make_prn_steps(cfg: Config, device=None):
     device = resolve_device(device)
 
     def loss_from_batch(model, batch, train: bool, generator=None):
-        with full_fp32_matmul():
+        with _phase("train.targets", train), full_fp32_matmul():
             grids = gaussian_blur(batch["weights_marks"], sigma=1.0, mode="nearest")
             labels = gaussian_blur(batch["label_marks"], sigma=2.0, mode="constant")
-        shard = (pdist.process_index(), pdist.process_count())
-        out = model.prn_forward(grids, train, generator, shard)
-        return prn_loss(out, labels)
+        with _phase("train.forward", train):
+            shard = (pdist.process_index(), pdist.process_count())
+            out = model.prn_forward(grids, train, generator, shard)
+        with _phase("train.loss", train):
+            return prn_loss(out, labels)
 
     train_loss = _TrainLoss(loss_from_batch, device)
 
     def train_step(state: TrainState, batch, lr: float,
                    generator: Optional[torch.Generator]):
-        loss, logs = train_loss(state.model, _on_device(batch, device),
-                                True, generator)
-        _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
+        with trace.span("train.step", state.step):
+            loss, logs = train_loss(state.model, _upload(batch, device),
+                                    True, generator)
+            _apply_updates(state, loss, lr, cfg.train.max_grad_norm)
         return state, _logs(logs, loss)
 
     @torch.no_grad()

@@ -2,7 +2,9 @@
 around the port's per-stage train steps; PyTorch twin of
 multiposenet_tpu/engine/trainer.py.
 
-- epoch loop with per-step meters and fps/ETA logging (print_freq)
+- epoch loop with per-step meters and fps/ETA logging (print_freq); the
+  log line's data wait and host ms per step of each train-step phase come
+  from the spans of utils/trace.py (``data.wait``, ``train.*``)
 - periodic step checkpoints (save_freq_step) and epoch checkpoints
 - in-epoch quick validation every val_freq steps (val_nbatch batches)
 - end-of-epoch validation (val_nbatch_end_epoch) and the best-ckpt copy,
@@ -36,6 +38,7 @@ import datetime
 import os
 import shutil
 import signal
+import time
 from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
@@ -47,10 +50,10 @@ from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
 from multiposenet_tpu_torch.engine.train_steps import STEP_FACTORIES, create_train_state
 from multiposenet_tpu_torch.models.posenet import PoseNet, build_trainable_posenet
 from multiposenet_tpu_torch.parallel import distributed as pdist
+from multiposenet_tpu_torch.utils import trace
 from multiposenet_tpu_torch.utils.logging import logger
 from multiposenet_tpu_torch.utils.meters import AverageValueMeter
 from multiposenet_tpu_torch.utils.metrics import MetricsWriter
-from multiposenet_tpu_torch.utils.timer import Timer
 
 
 def _to_cpu(obj):
@@ -131,8 +134,6 @@ class Trainer:
 
         self.last_epoch = 0
         self.global_step = 0
-        self.batch_timer = Timer()
-        self.data_timer = Timer()
         self.on_start_epoch_hooks: List[Callable] = []
         self.on_end_epoch_hooks: List[Callable] = []
 
@@ -294,19 +295,20 @@ class Trainer:
     def _train_one_epoch(self):
         cfg = self.cfg.train
         meters: Dict[str, AverageValueMeter] = {}
-        self.batch_timer.clear()
-        self.data_timer.clear()
-        self.data_timer.tic()
 
         n_batches = len(self.train_data) if hasattr(self.train_data, "__len__") else None
         batches = device_prefetch(iter(self.train_data), self.device, depth=2)
         # the steps' logs stay on the device between prints: reading one
         # per step would wait for the device every step
         pending: List[Dict[str, torch.Tensor]] = []
-        self.batch_timer.tic()
+
+        def flush_logs():
+            with trace.span("train.logs"):
+                return self._flush_logs(pending, meters)
+
+        t_print, spans_then = time.perf_counter(), trace.totals()
         interval_steps = 0
         for step, batch in enumerate(batches):
-            self.data_timer.toc(average=False)
             _, logs = self.train_step(self.state, batch,
                                       *self._step_args(self.scheduler.lr))
             pending.append(logs)
@@ -314,17 +316,20 @@ class Trainer:
             interval_steps += 1
 
             if step % cfg.print_freq == 0:
-                newest = self._flush_logs(pending, meters)  # waits for the device
-                # step wall time averaged over the print interval
-                step_time = self.batch_timer.toc(average=False) / interval_steps
-                self._print_log(step, n_batches, meters, step_time)
+                newest = flush_logs()  # waits for the device
+                # step wall time and the spans' host seconds, averaged
+                # over the print interval
+                step_time = (time.perf_counter() - t_print) / interval_steps
+                spans_now = trace.totals()
+                self._print_log(step, n_batches, meters, step_time,
+                                _seconds_per_step(spans_now, spans_then, interval_steps))
                 if self.metrics is not None:
                     self.metrics.write(self.global_step, newest, prefix="train/")
-                self.batch_timer.tic()
+                t_print, spans_then = time.perf_counter(), spans_now
                 interval_steps = 0
 
             if self.global_step % cfg.save_freq_step == 0 and self.is_primary:
-                self._flush_logs(pending, meters)
+                flush_logs()
                 self.saver.save(self.save_dir, self.state, self.last_epoch,
                                 cfg.save_nckpt_max, step=self.global_step)
 
@@ -342,9 +347,7 @@ class Trainer:
                     logger.info("checkpointed at step %d after stop request "
                                 "(%s)", self.global_step, fut.result())
                 raise SystemExit(0)
-
-            self.data_timer.tic()
-        self._flush_logs(pending, meters)
+        flush_logs()
 
     def validate(self, max_batches: int) -> float:
         """Meter every scalar the val step emits (per-stage losses, max/min
@@ -367,18 +370,37 @@ class Trainer:
             self.metrics.write(self.global_step, means, prefix="val/")
         return means["loss"]
 
-    def _print_log(self, step, n_batches, meters, step_time: float):
+    def _print_log(self, step, n_batches, meters, step_time: float,
+                   span_seconds: Dict[str, float]):
+        """The meters, then ``(data wait/step time s, fps, rest)`` and the
+        host ms per step of each ``train.*`` span (``span_seconds``: seconds
+        per step by span name, over the print interval)."""
         lines = [f"{self.cfg.train.exp_name}: epoch {self.last_epoch} "
                  f"[{step}/{n_batches or '?'}] lr={self.scheduler.lr:.2e}"]
         for k, m in meters.items():
             mean, _ = m.value()
             lines.append(f"\t{k}: {mean:.10f}")
         bt = step_time + 1e-9
-        dt = self.data_timer.duration + 1e-9
+        dt = span_seconds.get("data.wait", 0.0) + 1e-9
         fps = self.cfg.train.batch_size / bt
         if n_batches:
             rest = datetime.timedelta(seconds=int((n_batches - step) * bt))
         else:
             rest = "?"
         lines.append(f"\t({dt:.3f}/{bt:.3f}s, fps:{fps:.1f}, rest: {rest})")
+        phases = [f"{name[len('train.'):]} {1e3 * s:.2f}"
+                  for name, s in span_seconds.items() if name.startswith("train.")]
+        if phases:
+            lines.append(f"\thost ms/step: {', '.join(phases)}")
         logger.info("\n".join(lines))
+
+
+def _seconds_per_step(now: Dict[str, tuple], then: Dict[str, tuple], steps: int
+                      ) -> Dict[str, float]:
+    """Seconds per step of each span that ran between two ``trace.totals()``."""
+    out = {}
+    for name, (calls, seconds) in now.items():
+        calls0, seconds0 = then.get(name, (0, 0.0))
+        if calls > calls0:
+            out[name] = (seconds - seconds0) / max(steps, 1)
+    return out

@@ -1,4 +1,4 @@
-"""Structured metrics log and a profiler window — the port's copy of
+"""Structured metrics log — the port's copy of
 multiposenet_tpu/utils/metrics.py.
 
 ``MetricsWriter`` writes every scalar the train and val steps emit as one
@@ -6,8 +6,6 @@ JSON object per line of ``metrics.jsonl`` (grep-able, survives a crash) and,
 when ``torch.utils.tensorboard`` imports (it needs the ``tensorboard``
 package), mirrors them to TensorBoard event files under ``tb/``; without it
 there is no mirror, as the JAX package has none without TensorFlow.
-``StepProfiler`` traces the steps ``[start, start + count)`` with
-``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -51,34 +49,3 @@ class MetricsWriter:
         if self._tb is not None:
             self._tb.close()
 
-
-class StepProfiler:
-    """A ``torch.profiler`` window over the steps ``[start_step, start_step +
-    num_steps)``: call ``step(i)`` before each step i.  At the window's end
-    the trace is written to ``log_dir/trace_steps_{start}_{stop}.json``
-    (Chrome trace format: Perfetto or chrome://tracing), with the CUDA
-    activity when a GPU is present."""
-
-    def __init__(self, log_dir: str, start_step: int = 10, num_steps: int = 5):
-        self.log_dir = log_dir
-        self.start = start_step
-        self.stop = start_step + num_steps
-        self._prof = None
-        self.trace_path = None
-
-    def step(self, step: int):
-        import torch
-
-        if step == self.start and self._prof is None:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=acts)
-            self._prof.start()
-        elif step >= self.stop and self._prof is not None:
-            self._prof.stop()
-            os.makedirs(self.log_dir, exist_ok=True)
-            self.trace_path = os.path.join(
-                self.log_dir, f"trace_steps_{self.start}_{self.stop}.json")
-            self._prof.export_chrome_trace(self.trace_path)
-            self._prof = None

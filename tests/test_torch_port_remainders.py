@@ -1,8 +1,7 @@
 """multiposenet_tpu_torch's last small counterparts of the JAX package, on
 the CPU: the port's PRN MLP against JAX's fused ``_prn_mlp_eval``; ``MetricsWriter``'s JSONL
-log and TensorBoard mirror; ``StepProfiler``'s trace window; ``cli
-export-torch`` and ``import-torch`` (the reference's h5 layout) against
-JAX ``tools/export_torch_ckpt.py``."""
+log and TensorBoard mirror; ``cli export-torch`` and ``import-torch`` (the
+reference's h5 layout) against JAX ``tools/export_torch_ckpt.py``."""
 
 import copy
 import importlib.util
@@ -24,7 +23,7 @@ from multiposenet_tpu.models.posenet import PoseNet as JPoseNet
 from multiposenet_tpu_torch import cli
 from multiposenet_tpu_torch.engine import checkpoint as ckpt_lib
 from multiposenet_tpu_torch.models.posenet import build_posenet
-from multiposenet_tpu_torch.utils.metrics import MetricsWriter, StepProfiler
+from multiposenet_tpu_torch.utils.metrics import MetricsWriter
 from multiposenet_tpu_torch.weights import (
     read_reference_h5,
     state_dict_from_flax,
@@ -120,21 +119,6 @@ def test_metrics_writer_without_tensorboard(tmp_path, monkeypatch):
     off = MetricsWriter(str(tmp_path / "off"), use_tensorboard=False)
     off.close()
     assert sorted(os.listdir(tmp_path / "off")) == ["metrics.jsonl"]
-
-
-def test_step_profiler_traces_its_window(tmp_path):
-    prof = StepProfiler(str(tmp_path), start_step=2, num_steps=3)
-    x = torch.ones(64, 64)
-    for step in range(8):
-        prof.step(step)
-        if step == 4:
-            assert prof.trace_path is None      # still inside the window
-        (x @ x).sum()
-    assert prof.trace_path == str(tmp_path / "trace_steps_2_5.json")
-    with open(prof.trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "aten::mm" for e in events)
-    assert os.listdir(tmp_path) == ["trace_steps_2_5.json"]
 
 
 # ---------------------------------------------------------------- export-torch
