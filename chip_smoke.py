@@ -19,6 +19,19 @@ Phases (any failure exits non-zero, and no result line is printed):
               with a probe build of the kernel whose kernels stop after each
               stage (the split of its time, and the launch floor of an
               empty kernel);
+  2b. trunk epilogue  the frozen trunk's fused BatchNorm, add and ReLU
+              (csrc/trunk_epilogue.cu) at every shape of the ResNet-50 and
+              ResNet-101 detection steps (608 px, batch 25) and on NaN,
+              infinities, signed zeros and subnormals: within 4 ulps of the
+              sum's largest term of its plain twin on the CPU, and its gaps
+              to the twin on the card (cuDNN's BatchNorm, add, ReLU) and of
+              both to float64 logged; timed per launch with
+              inputs rotated past the L2 cache beside its bound (bytes /
+              3.35 TB/s) and the twin, summed over a step; its launches in
+              a detection train and val step of each trunk (49, 100), a
+              keypoint train step and a bf16 forward (0).  Alone:
+              ``python3 -c "import chip_smoke as cs;
+              cs.trunk_epilogue_phase(cs.card_line())"``;
   3. check    the CUDA pipeline against the same pipeline on the CPU (plain
               twins) on a small float32 input: equal grouped outputs;
   4. serving  BatchPredictor at full width (ResNet-101 FPN, 480 px, bf16,
@@ -195,6 +208,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -525,6 +539,294 @@ def host_ms_per_call(fn, calls: int = 500) -> float:
     host = (time.perf_counter() - t0) / calls
     torch.cuda.synchronize()
     return host * 1e3
+
+
+# ---------------------------------------------------------------- phase 2b
+
+# the trunk epilogue at the detection step's shapes: 608 px, batch 25
+TRUNK_SIZE = 608
+TRUNK_BATCH = 25
+TRUNK_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+L2_BYTES = 50 * 2 ** 20
+
+
+def trunk_epilogue_layers(blocks, size: int = TRUNK_SIZE) -> dict:
+    """{(C, H, mode): launches a forward} of a trunk with ``blocks``
+    bottlenecks a stage on a ``size`` px image (H = W); mode ``inner`` (the
+    stem, a block's first two convs), ``down`` or ``identity`` (a block's
+    end with the downsample's BatchNorm or the block's input)."""
+    counts: dict = {}
+
+    def add(key):
+        counts[key] = counts.get(key, 0) + 1
+
+    h = (size + 1) // 2
+    add((64, h, "inner"))
+    h = (h + 1) // 2                              # the stem's max pool
+    for planes, n, stride in zip((64, 128, 256, 512), blocks, (1, 2, 2, 2)):
+        for i in range(n):
+            add((planes, h, "inner"))
+            if i == 0 and stride == 2:
+                h = (h + 1) // 2
+            add((planes, h, "inner"))
+            add((planes * 4, h, "down" if i == 0 else "identity"))
+    return counts
+
+
+def trunk_epilogue_bytes(c: int, h: int, mode: str, b: int = TRUNK_BATCH) -> int:
+    """Bytes the epilogue must move: the conv output read, the activation
+    written, a block end's second input read."""
+    return 4 * b * c * h * h * (2 if mode == "inner" else 3)
+
+
+def trunk_epilogue_inputs(c: int, h: int, mode: str, gen: torch.Generator,
+                          b: int = TRUNK_BATCH, device: str = "cuda"):
+    """(x, bn, residual, down, down_bn) on the card, channels-last: conv
+    outputs N(0, 3), BatchNorms with running statistics and affine drawn so
+    that the scale and shift vary by channel."""
+    def act():
+        return (torch.randn(b, c, h, h, generator=gen) * 3).to(device).contiguous(
+            memory_format=torch.channels_last)
+
+    def bn():
+        return (torch.randn(c, generator=gen).to(device),
+                (torch.rand(c, generator=gen) * 2.95 + 0.05).to(device),
+                (1 + 0.5 * torch.randn(c, generator=gen)).to(device),
+                torch.randn(c, generator=gen).to(device), 1e-5)
+    x = act()
+    residual = act() if mode == "identity" else None
+    down = act() if mode == "down" else None
+    return x, bn(), residual, down, bn() if mode == "down" else None
+
+
+def _twin_args(x, bn, residual, down, down_bn):
+    args = [x, *bn, residual]
+    if down is not None:
+        args += [down, *down_bn]
+    return args
+
+
+def ulp_gaps(got: torch.Tensor, want: torch.Tensor, terms) -> tuple:
+    """(largest gap in ulps of the sum's largest term, largest gap in ulps
+    of ``want`` itself, values unequal) between two float32 results; NaN
+    in both at once is no gap.  The first is how a sum's rounding is
+    bounded: where the terms cancel, any other order of rounding is many
+    ulps of the small result off."""
+    g, w = got.double(), want.double()
+    same = (torch.isnan(g) & torch.isnan(w)) | (g == w)
+    gap = torch.where(same, 0.0, (g - w).abs())
+    scale = torch.stack([t.double().abs() for t in terms] + [w.abs()]).amax(0)
+    ulp = lambda v: torch.ldexp(torch.ones_like(v), (torch.frexp(  # noqa: E731
+        v.float().clamp_min(2.0 ** -126))[1] - 24).to(torch.int32)).double()
+    term_ulps = float((gap / ulp(scale)).nan_to_num(float("inf")).max())
+    self_ulps = float((gap / ulp(w)).nan_to_num(float("inf")).max())
+    unequal = int((~same).sum())
+    return term_ulps, self_ulps, unequal
+
+
+def check_trunk_epilogue(x, bn, residual, down, down_bn, label: str) -> dict:
+    """The kernel against its plain twin on the CPU, whose rounding it
+    repeats, and on the card (cuDNN's BatchNorm, add, ReLU), and both
+    against float64.  Gaps in ulps of the largest term of the sum (x * s,
+    mean * s, bias, the residual); raises beyond 4 ulps of the CPU twin."""
+    from multiposenet_tpu_torch.ops import cuda_trunk_epilogue
+    from multiposenet_tpu_torch.ops.trunk_epilogue import trunk_epilogue_plain
+
+    got = cuda_trunk_epilogue.trunk_epilogue_cuda(x, bn, residual, down, down_bn)
+    torch.cuda.synchronize()
+    args = _twin_args(x, bn, residual, down, down_bn)
+
+    def bn_terms(t, p):
+        """x * s, -mean * s and bias: BatchNorm's terms before they are
+        summed."""
+        s = p[2].double() / torch.sqrt(p[1].double() + p[4])
+        per_c = lambda v: v.view(1, -1, 1, 1).expand_as(t)  # noqa: E731
+        return [t.double() * per_c(s), per_c(-p[0].double() * s), per_c(p[3].double())]
+    terms = bn_terms(x, bn)
+    if residual is not None:
+        terms.append(residual.double())
+    if down is not None:
+        terms += bn_terms(down, down_bn)
+    # float64's sum rounded once to float32 (overflowing as float32 does)
+    exact = torch.stack(terms).sum(0).clamp_min(0.0).float()
+    twin = trunk_epilogue_plain(*args)
+    card = ulp_gaps(got, twin, terms)
+    out = {"ulps_card": card[0], "self_ulps_card": card[1], "unequal_card": card[2],
+           "err_kernel": ulp_gaps(got, exact, terms)[0],
+           "err_twin_card": ulp_gaps(twin, exact, terms)[0]}
+    del twin, exact
+    host = trunk_epilogue_plain(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                                  for a in args))
+    out["ulps_cpu"], _, out["unequal_cpu"] = ulp_gaps(
+        got.cpu(), host, [t.cpu() for t in terms])
+    del got, terms
+    if out["ulps_cpu"] > 4:
+        raise AssertionError(f"trunk epilogue {label}: {out}")
+    return out
+
+
+def rotating_ms(make_call, sets: list, iters: int) -> float:
+    """Device ms per call of ``make_call(inputs)`` over input sets used in
+    turn (more than twice the L2 cache in all, so each call reads from
+    device memory, as the trunk's layers do)."""
+    calls = itertools.cycle([make_call(s) for s in sets])
+    return cuda_time_ms(lambda: next(calls)(), iters)
+
+
+def trunk_epilogue_phase(card: str, backbones=("resnet50", "resnet101"),
+                         device: str = "cuda") -> dict:
+    """Phase 2b: the trunk epilogue (csrc/trunk_epilogue.cu) at every shape
+    of the detection step's trunks: against its plain twin on the card and
+    on the CPU, then timed beside its bound and the twin (cuDNN BatchNorm,
+    add and ReLU, which is the library's yardstick too), and summed over a
+    step; then its launches in a detection step of each trunk, in a
+    keypoint train step and in a bf16 forward.  ``device="cpu"`` rehearses
+    it, with the kernel and the CUDA timers stood in for."""
+    from multiposenet_tpu_torch import _build
+    from multiposenet_tpu_torch.config import Config, DataConfig, ModelConfig
+    from multiposenet_tpu_torch.engine import train_steps
+    from multiposenet_tpu_torch.models.posenet import build_trainable_posenet
+    from multiposenet_tpu_torch.ops import cuda_trunk_epilogue as cte
+    from multiposenet_tpu_torch.ops.trunk_epilogue import trunk_epilogue_plain
+
+    t_phase = time.perf_counter()
+    _build.build(cte.SOURCE)
+    gen = torch.Generator().manual_seed(SEED)
+    # NaN, infinities, signed zeros, subnormals and cancellation
+    x, bn, r, _, _ = trunk_epilogue_inputs(8, 5, "identity", gen, b=3,
+                                           device=device)
+    special = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0,
+                            1e-40, -1e-40, 3e38, -3e38], device=device)
+    x.permute(0, 2, 3, 1).view(-1)[:special.numel()] = special
+    r.permute(0, 2, 3, 1).view(-1)[-special.numel():] = special
+    check_trunk_epilogue(x, bn, r, None, None, "special values")
+    nchw = torch.zeros(2, 8, 3, 3, device=device)
+    try:
+        cte.trunk_epilogue_cuda(nchw, bn, None, None, None)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("trunk_epilogue_cuda took an NCHW tensor")
+
+    layers = {name: trunk_epilogue_layers(b) for name, b in TRUNK_BLOCKS.items()
+              if name in backbones}
+    shapes = sorted({k for v in layers.values() for k in v},
+                    key=lambda k: (-k[1], k[0], k[2]))
+    per_shape = {}
+    for c, h, mode in shapes:
+        label = f"C={c} {h}x{h} {mode}"
+        inputs = trunk_epilogue_inputs(c, h, mode, gen, device=device)
+        err = check_trunk_epilogue(*inputs, label)
+        nbytes = trunk_epilogue_bytes(c, h, mode)
+        sets = [inputs] + [trunk_epilogue_inputs(c, h, mode, gen, device=device)
+                           for _ in range(-(-2 * L2_BYTES // nbytes))]
+        kern = lambda s: lambda: cte.trunk_epilogue_cuda(*s)  # noqa: E731
+        twin = lambda s: lambda: trunk_epilogue_plain(*_twin_args(*s))  # noqa: E731
+        iters = max(20, min(200, int(4e9 // nbytes)))
+        k1 = rotating_ms(kern, sets, iters)
+        p1 = rotating_ms(twin, sets, iters)
+        p2 = rotating_ms(twin, sets, iters)
+        k2 = rotating_ms(kern, sets, iters)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        k_ms, p_ms = min(k1, k2), min(p1, p2)
+        per_shape[(c, h, mode)] = {"ms": k_ms, "ms_runs": [k1, k2],
+                                   "plain_ms": p_ms, "plain_runs": [p1, p2],
+                                   "bound_ms": bound, "bound_share": bound / k_ms,
+                                   "bytes": nbytes, **err}
+        log(f"kernel trunk_epilogue {label}: {k1:.4f} / {k2:.4f} ms per launch, "
+            f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB / 3.35 TB/s), bound "
+            f"share {bound / k_ms:.3f} ({nbytes / k_ms / 1e9:.2f} TB/s); plain "
+            f"twin = cuDNN BN + add + ReLU {p1:.4f} / {p2:.4f} ms; largest gap "
+            f"to the twin {err['ulps_card']:.2f} ulps of the largest term "
+            f"({err['self_ulps_card']:.0f} of its own result, "
+            f"{err['unequal_card']} values unequal), to the CPU twin "
+            f"{err['ulps_cpu']:.2f} ({err['unequal_cpu']} unequal); against "
+            f"float64 the kernel {err['err_kernel']:.2f}, the card's twin "
+            f"{err['err_twin_card']:.2f} [{card}]")
+        del inputs, sets
+        torch.cuda.empty_cache()
+
+    steps = {}
+    for name, counts in layers.items():
+        tot = {k: sum(n * per_shape[s][k] for s, n in counts.items())
+               for k in ("ms", "plain_ms", "bound_ms", "bytes")}
+        tot["launches"] = sum(counts.values())
+        tot["bound_share"] = tot["bound_ms"] / tot["ms"]
+        steps[name] = tot
+        log(f"trunk epilogue, {name} detection step at {TRUNK_SIZE} px batch "
+            f"{TRUNK_BATCH}: {tot['launches']} launches, {tot['ms']:.3f} ms "
+            f"against the plain twin's {tot['plain_ms']:.3f} ms, bound "
+            f"{tot['bound_ms']:.3f} ms ({tot['bytes'] / 1e9:.2f} GB), bound "
+            f"share {tot['bound_share']:.3f} [{card}]")
+
+    # launches on each path
+    torch.backends.cudnn.allow_tf32 = True
+    counted = {}
+    for name in backbones:
+        cfg = Config(model=ModelConfig(backbone=name),
+                     data=DataConfig(inp_size=TRUNK_SIZE))
+        model = build_trainable_posenet(cfg.model, torch.device(device), seed=SEED)
+        state = train_steps.create_train_state(cfg, "detection", model=model)
+        step, val = train_steps.STEP_FACTORIES["detection"](cfg, device)
+        rng = np.random.RandomState(SEED)
+        batch = {"image": torch.from_numpy(rng.randint(
+                     0, 256, (TRUNK_BATCH, TRUNK_SIZE, TRUNK_SIZE, 3), np.uint8)),
+                 "boxes": torch.tensor([[[40.0, 60.0, 300.0, 500.0, 0.0]]]
+                                       ).repeat(TRUNK_BATCH, 1, 1)}
+        step(state, batch, 1e-5)
+        torch.cuda.synchronize()
+        cte.launches = 0
+        _, logs = step(state, batch, 1e-5)
+        if not torch.isfinite(logs["loss"]).item():
+            raise AssertionError(f"{name} detection step: loss {logs['loss']}")
+        counted[f"{name}_detection_step"] = cte.launches
+        cte.launches = 0
+        val(state, batch)
+        counted[f"{name}_detection_val_step"] = cte.launches
+        del model, state, step, val
+        torch.cuda.empty_cache()
+    small = Config(model=ModelConfig(backbone="resnet50"), data=DataConfig(inp_size=64))
+    model = build_trainable_posenet(small.model, torch.device(device), seed=SEED)
+    state = train_steps.create_train_state(small, "keypoint", model=model)
+    step, _ = train_steps.STEP_FACTORIES["keypoint"](small, device)
+    rng = np.random.RandomState(SEED)
+    joints = np.full((2, 3, 18, 3), 2.0, np.float32)
+    joints[:, 0, :, :2] = rng.uniform(0, 64, (2, 18, 2))
+    joints[:, 0, :, 2] = 1
+    kp_batch = {"image": torch.from_numpy(rng.randint(0, 256, (2, 64, 64, 3), np.uint8)),
+                "joints": torch.from_numpy(joints),
+                "mask": torch.ones(2, 16, 16)}
+    cte.launches = 0
+    step(state, kp_batch, 1e-5)
+    torch.cuda.synchronize()
+    counted["keypoint_step"] = cte.launches
+    bf16 = build_trainable_posenet(ModelConfig(backbone="resnet50",
+                                               compute_dtype=torch.bfloat16),
+                                   torch.device(device), seed=SEED)
+    cte.launches = 0
+    with torch.no_grad():
+        bf16.detection_forward(torch.rand(2, 64, 64, 3, device=device))
+    torch.cuda.synchronize()
+    counted["bf16_forward"] = cte.launches
+    del model, state, step, bf16
+    torch.cuda.empty_cache()
+    want = {f"{n}_detection{s}": sum(layers[n].values())
+            for n in backbones for s in ("_step", "_val_step")}
+    want.update(keypoint_step=0, bf16_forward=0)
+    log(f"trunk epilogue launches by path: {counted} (expected {want}); phase "
+        f"wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    if counted != want:
+        raise AssertionError(f"trunk epilogue launches {counted}, expected {want}")
+    worst = max(per_shape.values(), key=lambda v: v["ulps_card"])
+    return {"per_shape": {f"{c}x{h}x{h}_{m}": v for (c, h, m), v in per_shape.items()},
+            "steps": steps, "launches_by_path": counted,
+            "max_ulps_card": worst["ulps_card"],
+            "max_self_ulps_card": max(v["self_ulps_card"] for v in per_shape.values()),
+            "max_ulps_cpu": max(v["ulps_cpu"] for v in per_shape.values()),
+            "max_err_kernel": max(v["err_kernel"] for v in per_shape.values()),
+            "max_err_twin_card": max(v["err_twin_card"] for v in per_shape.values()),
+            "unequal_cpu": sum(v["unequal_cpu"] for v in per_shape.values()),
+            "build_s": _build.build_seconds.get(cte.SOURCE)}
 
 
 # ---------------------------------------------------------------- model set-up
@@ -3204,7 +3506,7 @@ def main() -> int:
         format_pose_batch, make_e2e_pose_pipeline)
     from multiposenet_tpu_torch.engine.predictor import BatchPredictor
     from multiposenet_tpu_torch.models.posenet import build_posenet
-    from multiposenet_tpu_torch.ops import cuda_nms
+    from multiposenet_tpu_torch.ops import cuda_nms, cuda_trunk_epilogue
     from multiposenet_tpu_torch.ops.nms import nms_suppress, nms_suppress_plain
 
     t_start = time.perf_counter()
@@ -3215,7 +3517,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
     # ---- 1. build ----------------------------------------------------------
-    build_s, probe = build_kernels([cuda_nms.SOURCE])
+    build_s, probe = build_kernels([cuda_nms.SOURCE, cuda_trunk_epilogue.SOURCE])
 
     # ---- 2. kernel against its twin ----------------------------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -3326,6 +3628,9 @@ def main() -> int:
     log(f"kernel nms_suppress at the reference-shaped B=1 K={K}: {one_ms:.5f} ms "
         f"per launch on the device (CUDA graph), bound {one_bound_ms:.7f} ms "
         f"({one_bound_by}), bound share {one_bound_ms / one_ms:.5f} [{card}]")
+
+    # ---- 2b. the trunk epilogue at the detection step's shapes ---------------
+    trunk = trunk_epilogue_phase(card)
 
     # ---- 3. small reference check -------------------------------------------
     check_against_cpu()
@@ -3470,6 +3775,23 @@ def main() -> int:
         "reference_shaped_shape_bound_ms": one_bound_ms,
         "library_ms": None,
         "build_s": build_s.get(cuda_nms.SOURCE),
+    }, {
+        "name": "trunk_epilogue",
+        "route": "cuda",
+        "source": "multiposenet_tpu_torch/csrc/trunk_epilogue.cu",
+        "replaces": None,
+        "tpu_kernel": None,
+        "launches_by_path": trunk["launches_by_path"],
+        "ms_per_step": {k: v["ms"] for k, v in trunk["steps"].items()},
+        "bound_ms_per_step": {k: v["bound_ms"] for k, v in trunk["steps"].items()},
+        "bound_share": {k: v["bound_share"] for k, v in trunk["steps"].items()},
+        "plain_ms_per_step": {k: v["plain_ms"] for k, v in trunk["steps"].items()},
+        # the plain twin on the card is cuDNN's BatchNorm, add and ReLU
+        "library_ms_per_step": {k: v["plain_ms"] for k, v in trunk["steps"].items()},
+        "per_shape": trunk["per_shape"],
+        "max_ulps_card": trunk["max_ulps_card"],
+        "max_ulps_cpu": trunk["max_ulps_cpu"],
+        "build_s": build_s.get(cuda_trunk_epilogue.SOURCE),
     }]
     log(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,7 @@ a counterpart under the same path:
   weights.py           Flax {params, batch_stats} tree -> torch state_dict
   models/              ResNet-FPN, keypoint head, RetinaNet heads, PRN
   ops/                 anchors, boxes, NMS (+ the CUDA suppression kernel),
+                       the trunk epilogue (+ its CUDA kernel),
                        peaks, gaussian blur, heatmap targets, losses,
                        device grouping, pyramid and resize operators
   data/                COCO index, PRN dataset, loader, device prefetch

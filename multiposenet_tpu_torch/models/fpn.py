@@ -18,6 +18,13 @@ a train step inside a process group has switched that on
 (``use_global_batch_stats``).  The module's own ``training`` flag is not
 read.
 
+Each trunk layer ends in ``trunk_epilogue``: ``relu(bn(conv_out) [+
+residual] [+ bn_down(down_out)])``.  On running statistics in float32 with
+no autograd to record through the trunk (the detection stage's frozen
+trunk, val steps, float32 inference) it is one call of the operator
+``mpn::trunk_epilogue`` (ops/trunk_epilogue.py), one kernel launch on the
+GPU; otherwise the modules' own op sequence.
+
 ``fold_bn=True`` builds the inference-only graph of a folded state dict
 (models/fold_bn.py): the trunk convs carry a bias and each trunk BN is a
 ``FoldedBN``, which passes its input through and refuses ``train=True``.
@@ -25,12 +32,14 @@ read.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.nn.functional import all_reduce as differentiable_all_reduce
+
+from multiposenet_tpu_torch.ops import trunk_epilogue as _te
 
 BN_EPS = 1e-5
 
@@ -157,6 +166,24 @@ def _trunk_bn(c: int, fold_bn: bool) -> nn.Module:
     return FoldedBN() if fold_bn else BatchNorm(c)
 
 
+def trunk_epilogue(x: torch.Tensor, bn: nn.Module, train: bool,
+                   residual: Optional[torch.Tensor] = None,
+                   down: Optional[Tuple[torch.Tensor, nn.Module]] = None
+                   ) -> torch.Tensor:
+    """The end of a trunk layer, ``relu(bn(x) [+ residual] [+
+    down_bn(down_x)])`` with ``down = (down_x, down_bn)``, the downsample
+    conv's raw output and its BatchNorm.  In one call of the operator
+    ``mpn::trunk_epilogue`` (one kernel launch on the GPU) where
+    ``ops/trunk_epilogue.engages`` takes the layer; otherwise as the
+    modules' own op sequence."""
+    if _te.engages(x, bn, train, residual, down):
+        return _te.fused(x, bn, residual, down)
+    out = bn(x, train)
+    if down is not None:
+        residual = down[1](down[0], train)
+    return F.relu(out if residual is None else out + residual)
+
+
 class Bottleneck(nn.Module):
     """ResNet bottleneck block, expansion 4 (reference fpn.py:9-34)."""
 
@@ -177,13 +204,13 @@ class Bottleneck(nn.Module):
                 _trunk_bn(planes * 4, fold_bn))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x), train))
-        out = F.relu(self.bn2(self.conv2(out), train))
-        out = self.bn3(self.conv3(out), train)
-        if self.downsample is not None:
-            conv, bn = self.downsample
-            x = bn(conv(x), train)
-        return F.relu(out + x)
+        out = trunk_epilogue(self.conv1(x), self.bn1, train)
+        out = trunk_epilogue(self.conv2(out), self.bn2, train)
+        if self.downsample is None:
+            return trunk_epilogue(self.conv3(out), self.bn3, train, residual=x)
+        conv, bn = self.downsample
+        return trunk_epilogue(self.conv3(out), self.bn3, train,
+                              down=(conv(x), bn))
 
 
 def pyramid_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -251,7 +278,7 @@ class ResNetFPN(nn.Module):
         detection pyramid (``FPNFeatures.detection`` is empty).  ``train``
         runs the trunk's BatchNorms on batch statistics and updates their
         running statistics."""
-        c1 = F.relu(self.bn1(self.conv1(x), train))
+        c1 = trunk_epilogue(self.conv1(x), self.bn1, train)
         c1 = F.max_pool2d(c1, 3, stride=2, padding=1)
         c2 = self._stage("layer1", c1, train)   # stride 4
         c3 = self._stage("layer2", c2, train)   # stride 8
