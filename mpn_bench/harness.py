@@ -11,6 +11,8 @@ file of its own, found by the name ``BENCHMARK.json`` gives it:
 - ``metrics/<metric>.py``: ``read(ctx) -> float | None`` for every metric,
   end to end and per layer;
 - ``rooflines/<kernel>.py``: the least work of a kernel at its shapes;
+- ``reference/trunks/<family>.py``: the reference's trunk for each
+  configuration ``backbone`` named in its ``NAMES``;
 - ``pending/<cell>.json``: the ``BENCHMARK.json`` entries of a cell kept
   out of it for now, for the readings and the tests.
 """
@@ -245,20 +247,35 @@ def idle_gaps(intervals: Sequence[Tuple[float, float]], lo: float, hi: float
 
 
 MARK = "mpn_bench_mark"
+# The profiler drops device records near either end of a CUDA trace: at
+# the start the first few (a few dozen once the process has traced many
+# times, whether or not the card idled after the start), at the stop the
+# last ones where its conversion of the device's clock to the host's runs
+# ahead (the two part by up to tens of milliseconds over a few seconds).  A
+# clock mark at either end was lost with them.  So PRIME_KERNELS
+# one-element fills go ahead of the first mark, to take the loss at the
+# start, and the host waits END_WAIT_S after the last mark before it stops
+# the profiler; ``events`` reads nothing outside the marks, and says how
+# many fills were dropped.
+PRIME_KERNELS = 1024
+PRIME_NAME = "FillFunctor"   # in the name of ``fill_``'s kernel
+END_WAIT_S = 0.5
 
 
 class DeviceTrace:
     """``torch.profiler`` over the measured window.  On a GPU it records the
     device's activity alone; a marker kernel (``torch.cuda._sleep``) launched
     after a synchronise at each end ties the device's clock to the host's,
-    so that device events land on the ``perf_counter`` clock of the spans.
-    On the CPU the "device events" are the top-level CPU ops, marked by a
-    ``record_function`` at each end."""
+    so that device events land on the ``perf_counter`` clock of the spans;
+    ``PRIME_KERNELS`` fills go ahead of the first, and the profiler stops
+    ``END_WAIT_S`` after the last.  On the CPU the "device events" are the
+    top-level CPU ops, marked by a ``record_function`` at each end."""
 
     def __init__(self, device):
         import torch
 
         self.torch = torch
+        self.device = device
         self.cuda = device.type == "cuda"
         acts = [torch.profiler.ProfilerActivity.CUDA if self.cuda
                 else torch.profiler.ProfilerActivity.CPU]
@@ -279,10 +296,16 @@ class DeviceTrace:
 
     def start(self):
         self.prof.start()
+        if self.cuda:
+            buf = self.torch.empty(1, device=self.device)
+            for _ in range(PRIME_KERNELS):
+                buf.fill_(0.0)
         self._mark()
 
     def stop(self):
         self._mark()
+        if self.cuda:
+            time.sleep(END_WAIT_S)
         self.prof.stop()
 
     def events(self) -> List[Tuple[str, float, float]]:
@@ -303,7 +326,15 @@ class DeviceTrace:
         if len(marks) < 2:
             raise CellError("the trace lacks its two clock marks")
         d0, d1 = marks[0], marks[-1]
+        if self.cuda:
+            kept = sum(1 for n, s, _ in raw if s < d0 and PRIME_NAME in n)
+            print(f"device trace: the profiler dropped {PRIME_KERNELS - kept} of the "
+                  f"{PRIME_KERNELS} fills ahead of the first clock mark", file=sys.stderr)
         h0, h1 = self.host_marks[0], self.host_marks[-1]
+        if self.cuda:
+            print(f"device trace: over the {h1 - h0:.3f} s between the clock marks the "
+                  f"device's clock parted from the host's by {1e3 * ((d1 - d0) - (h1 - h0)):+.3f}"
+                  f" ms (the profiler stops {END_WAIT_S} s after the last)", file=sys.stderr)
         rate = (h1 - h0) / (d1 - d0)
         out = []
         for n, s, e in raw:

@@ -1,11 +1,14 @@
 """MultiPoseNet in plain PyTorch float32: the benchmark's frozen reference.
 
 The architecture of the published model (LiMeng95/MultiPoseNet.pytorch,
-network/posenet.py and network/fpn.py; Kocabas et al., ECCV 2018): a
-ResNet-50/101 trunk, two FPN top-downs (RetinaNet P3-P7 and keypoint
-P2-P5), the keypoint subnet, the RetinaNet regression and classification
-heads and the PRN.  Parameter names are the published ``state_dict`` keys,
-so one seeded state dict loads into this module and into the program.
+network/posenet.py and network/fpn.py; Kocabas et al., ECCV 2018): a trunk
+to four feature maps c2-c5 at strides 4-32, two FPN top-downs (RetinaNet
+P3-P7 and keypoint P2-P5) whose input widths are the trunk's, the keypoint
+subnet, the RetinaNet regression and classification heads and the PRN.
+The trunk is the one that ``trunks/<family>.py`` builds for the
+configuration's ``backbone`` name (``trunks/__init__.py``).  Parameter
+names are the published ``state_dict`` keys, so one seeded state dict
+loads into this module and into the program.
 
 It imports nothing of the program.  Every layer is a plain ``torch``
 operation; BatchNorm always normalises with its running statistics (the
@@ -16,16 +19,57 @@ the reference in a lower precision than the configuration states).
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+import importlib.util
+from pathlib import Path
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-BLOCK_COUNTS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 BN_EPS = 1e-5
+TRUNKS_DIR = Path(__file__).resolve().parent / "trunks"
 
 Quant = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+class Trunk(NamedTuple):
+    """What a trunk file's ``build(name)`` returns: ``modules``, registered
+    in this order on the FPN ahead of its pyramids (their ``state_dict``
+    keys read ``fpn.<name>...``); ``run(fpn, x, q) -> [c2, c3, c4, c5]``,
+    the forward over those modules of NCHW images; ``widths``, the channels
+    of c2-c5."""
+    modules: Dict[str, nn.Module]
+    run: Callable[[nn.Module, torch.Tensor, Quant], List[torch.Tensor]]
+    widths: Tuple[int, int, int, int]
+
+
+def families(directory: Path) -> Dict[str, object]:
+    """Backbone name -> the trunk file (module) of ``directory`` that
+    builds it, from every ``*.py`` there not named ``_*``."""
+    found: Dict[str, object] = {}
+    for path in sorted(directory.glob("*.py")):
+        if path.name.startswith("_"):
+            continue
+        spec = importlib.util.spec_from_file_location(f"mpn_bench_trunk_{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        for name in mod.NAMES:
+            if name in found:
+                raise ValueError(f"backbone {name!r} is built by two trunk files in {directory}")
+            found[name] = mod
+    return found
+
+
+def trunk(backbone: str) -> Trunk:
+    """The trunk of ``backbone``, from the file under ``TRUNKS_DIR`` whose
+    ``NAMES`` hold it."""
+    found = families(TRUNKS_DIR)
+    if backbone not in found:
+        raise ValueError(
+            f"no trunk file in {TRUNKS_DIR} builds backbone {backbone!r}; "
+            f"found: {', '.join(sorted(found)) or 'none'}")
+    return found[backbone].build(backbone)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b, stride=1, padding=0,
@@ -65,61 +109,25 @@ def upsample_nearest(x: torch.Tensor, hw) -> torch.Tensor:
     return x[:, :, rows][:, :, :, cols]
 
 
-class Bottleneck(nn.Module):
-    def __init__(self, inplanes: int, planes: int, stride: int):
-        super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1,
-                               bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
-        self.downsample = None
-        if stride != 1 or inplanes != planes * 4:
-            self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(planes * 4))
-
-    def run(self, x: torch.Tensor, q: Quant) -> torch.Tensor:
-        out = F.relu(bn(self.bn1, conv(self.conv1, x, q)))
-        out = F.relu(bn(self.bn2, conv(self.conv2, out, q)))
-        out = bn(self.bn3, conv(self.conv3, out, q))
-        if self.downsample is not None:
-            x = bn(self.downsample[1], conv(self.downsample[0], x, q))
-        return F.relu(out + x)
-
-
 class FPN(nn.Module):
-    def __init__(self, blocks: Sequence[int], ch: int = 256):
+    """The trunk's modules, then both top-downs, sized from its widths."""
+
+    def __init__(self, body: Trunk, ch: int = 256):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
-        inplanes = 64
-        for li, (planes, n, stride) in enumerate(
-                zip((64, 128, 256, 512), blocks, (1, 2, 2, 2)), start=1):
-            layer = []
-            for i in range(n):
-                layer.append(Bottleneck(inplanes, planes, stride if i == 0 else 1))
-                inplanes = planes * 4
-            self.add_module(f"layer{li}", nn.Sequential(*layer))
+        for name, mod in body.modules.items():
+            self.add_module(name, mod)
+        self._run_trunk = body.run
+        w2, w3, w4, w5 = body.widths
         c = lambda cin, k, s=1: nn.Conv2d(cin, ch, k, stride=s, padding=k // 2)  # noqa: E731
-        self.conv6, self.conv7 = c(2048, 3, 2), c(ch, 3, 2)
-        self.latlayer1, self.latlayer2, self.latlayer3 = c(2048, 1), c(1024, 1), c(512, 1)
+        self.conv6, self.conv7 = c(w5, 3, 2), c(ch, 3, 2)
+        self.latlayer1, self.latlayer2, self.latlayer3 = c(w5, 1), c(w4, 1), c(w3, 1)
         self.toplayer0, self.toplayer1, self.toplayer2 = c(ch, 3), c(ch, 3), c(ch, 3)
-        self.toplayer = c(2048, 1)
-        self.flatlayer1, self.flatlayer2, self.flatlayer3 = c(1024, 1), c(512, 1), c(256, 1)
+        self.toplayer = c(w5, 1)
+        self.flatlayer1, self.flatlayer2, self.flatlayer3 = c(w4, 1), c(w3, 1), c(w2, 1)
         self.smooth1, self.smooth2, self.smooth3 = c(ch, 3), c(ch, 3), c(ch, 3)
 
     def trunk(self, x: torch.Tensor, q: Quant) -> List[torch.Tensor]:
-        c1 = F.relu(bn(self.bn1, conv(self.conv1, x, q)))
-        x = F.max_pool2d(c1, 3, stride=2, padding=1)
-        feats = []
-        for li in range(1, 5):
-            for block in getattr(self, f"layer{li}"):
-                x = block.run(x, q)
-            feats.append(x)
-        return feats                                   # c2, c3, c4, c5
+        return self._run_trunk(self, x, q)             # c2, c3, c4, c5
 
     def detection(self, c3, c4, c5, q: Quant) -> Tuple[torch.Tensor, ...]:
         p6 = self._pyramid_conv(self.conv6, c5, q)
@@ -163,7 +171,7 @@ class Head(nn.Module):
 
 
 class PRN(nn.Module):
-    def __init__(self, nodes: int = 1024, coeff: int = 2):
+    def __init__(self, nodes: int, coeff: int):
         super().__init__()
         self.height, self.width = 28 * coeff, 18 * coeff
         d = self.height * self.width * 17
@@ -187,12 +195,11 @@ class PoseNet(nn.Module):
     classification (B, A, 1) sigmoid scores and regression (B, A, 4), the
     anchors in (y, x, anchor) order."""
 
-    def __init__(self, backbone: str = "resnet101", ch: int = 256,
-                 num_joints: int = 18, num_anchors: int = 9,
-                 num_classes: int = 1, prn_nodes: int = 1024, prn_coeff: int = 2):
+    def __init__(self, backbone: str, ch: int, num_joints: int, num_anchors: int,
+                 num_classes: int, prn_nodes: int, prn_coeff: int):
         super().__init__()
         self.num_classes = num_classes
-        self.fpn = FPN(BLOCK_COUNTS[backbone], ch)
+        self.fpn = FPN(trunk(backbone), ch)
         for k in range(2, 6):
             self.add_module(f"convfin_k{k}", nn.Conv2d(ch, 19, 1))
         for i in range(1, 5):
@@ -235,7 +242,8 @@ class PoseNet(nn.Module):
 
 def build(cfg: dict, device="cpu") -> PoseNet:
     """An uninitialised reference model of configuration ``cfg`` (a
-    configuration file's dict) on ``device`` (``meta`` for shapes only)."""
+    configuration file's dict) on ``device`` (``meta`` for shapes only).
+    An unknown ``backbone`` raises ``ValueError``."""
     with torch.device(device):
         return PoseNet(cfg["backbone"], cfg["fpn_channels"], cfg["num_joints"],
                        cfg["num_anchors"], cfg["num_classes"],

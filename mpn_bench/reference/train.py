@@ -3,7 +3,7 @@ reference (published: LiMeng95/MultiPoseNet.pytorch
 multipose_detection_train.py, network/losses.py FocalLoss, training/trainer.py).
 Imports nothing of the program.
 
-The ResNet trunk and the keypoint parts are frozen; the RetinaNet pyramid
+The trunk and the keypoint parts are frozen; the RetinaNet pyramid
 (conv6, conv7, latlayer1-3, toplayer0-2) and both heads train with Adam
 (betas 0.9 / 0.999, eps 1e-8, no weight decay).  The loss is the focal loss
 (alpha 0.25, gamma 2) over anchors with IoU >= 0.5 positive and < 0.4

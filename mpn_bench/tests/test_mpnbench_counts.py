@@ -2,6 +2,7 @@
 small shapes, against counts made by hand."""
 
 import copy
+import hashlib
 
 import pytest
 import torch
@@ -80,3 +81,26 @@ def test_backbones_differ_only_in_the_trunk():
     deeper = copy.deepcopy(cfg)
     deeper["backbone"] = "resnet101"
     assert flops.serve_flops_per_image(deeper) > flops.serve_flops_per_image(cfg)
+
+
+# the frozen reference's state_dict keys, in order, and its FLOP counts, as
+# they stood before the trunk moved into reference/trunks/: the seeded
+# weights draw one flat normal in this key order, and mfu reads these counts
+REFERENCE_PINS = {
+    "mpn-r50": (402, "92b7f2836013e4fe0e20cb35e57517a9c4d7ebf2ff106b7708bb6125f5a76daf",
+                7_932_235_443_200, 171_436_102_144),
+    "mpn-r101": (708, "1721e001eeb54368658a0c249faf947e26b4a3df913f5701d378ffa52a601dd6",
+                 9_299_696_512_000, 205_527_929_344),
+}
+
+
+@pytest.mark.parametrize("config", sorted(REFERENCE_PINS))
+def test_the_reference_keeps_its_keys_and_counts(config):
+    files = {c["name"]: c["file"] for c in harness.load_bench()["configs"]}
+    cfg = harness.load_json(harness.ROOT / files[config])
+    keys = list(ref_model.build(cfg, "meta").state_dict())
+    n, digest, det_flops_25, serve_flops = REFERENCE_PINS[config]
+    assert len(keys) == n
+    assert hashlib.sha256("\n".join(keys).encode()).hexdigest() == digest
+    assert flops.detection_step_flops(cfg, 25) == det_flops_25
+    assert flops.serve_flops_per_image(cfg) == serve_flops

@@ -2,8 +2,12 @@
 gaps, their labels by the host span open at the time, and the idle share
 a metric reads."""
 
+import time
+from types import SimpleNamespace
+
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from mpn_bench import harness
 
@@ -61,3 +65,86 @@ def test_metrics_of_a_cell():
     assert "r101-serve-b64" not in {w["name"] for w in harness.load_bench()["workloads"]}
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert (harness.BENCH_DIR / "metrics" / f"{m['name']}.py").is_file()
+
+
+class FakeProfiler:
+    """A CUDA trace as the profiler gives it: a kernel lands on the device's
+    clock, the host's shifted by ``offset_s``, and is kept only where it
+    ends before the stop; the first ``drop_first`` device records are lost,
+    and ``drop`` loses that clock mark (1: the first, 2: the last)."""
+
+    def __init__(self, drop_first: int = 0, drop: int = 0, offset_s: float = 0.0):
+        self.drop_first, self.drop, self.offset_s = drop_first, drop, offset_s
+        self.kernels = []
+
+    def start(self):
+        self.t_start = time.perf_counter()
+
+    def stop(self):
+        self.t_stop = time.perf_counter()
+
+    def launch(self, name: str):
+        t = time.perf_counter() + self.offset_s
+        self.kernels.append((name, t, t + 2e-6))
+
+    def events(self):
+        out, marks = [], 0
+        for name, s, e in self.kernels[self.drop_first:]:
+            if e > self.t_stop:
+                continue
+            if "spin_kernel" in name:
+                marks += 1
+                if marks == self.drop:
+                    continue
+            us = lambda t: (t - self.t_start) * 1e6  # noqa: E731
+            out.append(SimpleNamespace(name=name, device_type=DeviceType.CUDA, cpu_parent=None,
+                                       time_range=SimpleNamespace(start=us(s), end=us(e))))
+        return out
+
+
+def _fake_trace(prof: FakeProfiler):
+    """A CUDA ``DeviceTrace`` over ``prof``, with two kernels in its window."""
+    tr = harness.DeviceTrace(torch.device("cpu"))
+    tr.cuda, tr.prof = True, prof
+    fill = SimpleNamespace(fill_=lambda v: prof.launch("elementwise_kernel<FillFunctor<float>>"))
+    tr.torch = SimpleNamespace(
+        empty=lambda *a, **k: fill,
+        cuda=SimpleNamespace(synchronize=lambda: None,
+                             _sleep=lambda cycles: prof.launch("spin_kernel(long)")))
+    tr.start()
+    launched = []
+    for name in ("gemm", "relu"):
+        time.sleep(0.002)
+        launched.append((name, time.perf_counter()))
+        prof.launch(name)
+    time.sleep(0.002)
+    tr.stop()
+    return tr, launched
+
+
+@pytest.mark.parametrize("drop_first,offset_s", [(0, 0.0), (1, 0.0), (40, 0.0),
+                                               (harness.PRIME_KERNELS, 0.0), (3, 0.005)])
+def test_the_clock_marks_survive_what_the_profiler_drops(drop_first, offset_s, capsys):
+    """The profiler may drop a trace's first device records, and those that
+    end after its stop on a device clock running ahead of the host's: the
+    fills ahead of the first mark take the one loss, the wait after the
+    last the other, and the window reads as in a trace that lost nothing,
+    its kernels tied back to their launches."""
+    tr, launched = _fake_trace(FakeProfiler(drop_first=drop_first, offset_s=offset_s))
+    events = tr.events()
+    assert [n for n, _, _ in events] == [n for n, _ in launched]
+    for (_, s, e), (_, t) in zip(events, launched):
+        assert s == pytest.approx(t, abs=2e-4) and e - s == pytest.approx(2e-6, abs=1e-7)
+    err = capsys.readouterr().err
+    assert f"dropped {drop_first} of the {harness.PRIME_KERNELS} fills" in err
+    assert "the device's clock parted from the host's by " in err
+    assert tr.prof.t_stop - tr.host_marks[-1] >= harness.END_WAIT_S
+
+
+@pytest.mark.parametrize("drop_first,drop,offset_s", [
+    (0, 1, 0.0), (0, 2, 0.0), (harness.PRIME_KERNELS + 1, 0, 0.0),
+    (0, 0, 2 * harness.END_WAIT_S)])
+def test_a_trace_that_lost_a_clock_mark_is_never_read(drop_first, drop, offset_s):
+    tr, _ = _fake_trace(FakeProfiler(drop_first=drop_first, drop=drop, offset_s=offset_s))
+    with pytest.raises(harness.CellError, match="two clock marks"):
+        tr.events()

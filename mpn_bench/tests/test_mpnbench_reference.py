@@ -171,15 +171,18 @@ def test_detection_step_matches_the_port():
 
 
 def test_reference_imports_nothing_of_the_program():
-    code = ("import sys; import mpn_bench.reference.model, mpn_bench.reference.post, "
+    code = ("import sys; import mpn_bench.reference.model as m, mpn_bench.reference.post, "
             "mpn_bench.reference.train, mpn_bench.reference.flops; "
+            "[m.trunk(b) for b in m.families(m.TRUNKS_DIR)]; "
             "bad = sorted({m.split('.')[0] for m in sys.modules} & "
             "{'multiposenet_tpu_torch', 'multiposenet_tpu', 'jax', 'jaxlib', 'flax'}); "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=harness.ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    for path in (harness.BENCH_DIR / "reference").glob("*.py"):
+    paths = sorted((harness.BENCH_DIR / "reference").rglob("*.py"))
+    assert harness.BENCH_DIR / "reference" / "trunks" / "resnet.py" in paths
+    for path in paths:
         text = path.read_text()
         assert "multiposenet_tpu" not in text.replace("MultiPoseNet", "")
         assert "import jax" not in text
